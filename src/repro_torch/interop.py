@@ -1,0 +1,98 @@
+"""Carry state across from the JAX package, as numpy arrays.
+
+Converts the JAX package's ``Network``, ``CellParams``, ``BDFState``,
+``EventQueue`` and ``SpikeRecord`` -- handed over as NamedTuples (or any
+object with those fields) of numpy arrays -- into the port's tensors, and
+the port's back into dicts of numpy arrays that rebuild the JAX
+NamedTuples with ``Cls(**d)``.  Nothing here imports the JAX package: the
+caller does the ``np.asarray`` on its side.
+
+The JAX ``BDFState`` of a vmapped network already carries the leading
+neuron axis the port uses; a single neuron's state (scalar ``t``) gains a
+lane axis of one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.bdf import BDFState
+from repro_torch.core.cell import CellParams
+from repro_torch.core.events import EventQueue, SpikeRecord
+from repro_torch.core.network import Network
+
+_INT = (np.int8, np.int16, np.int32, np.int64, np.uint8)
+
+
+def _fields(obj, names):
+    if hasattr(obj, "_asdict"):
+        d = obj._asdict()
+        return {k: d[k] for k in names}
+    if isinstance(obj, dict):
+        return {k: obj[k] for k in names}
+    return {k: getattr(obj, k) for k in names}
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.as_tensor(a.copy(), dtype=torch.bool, device=device)
+    if a.dtype.type in _INT:
+        return torch.as_tensor(a.astype(np.int32), device=device)
+    return torch.as_tensor(a.astype(np.float64), device=device)
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy()
+
+
+def network_from_numpy(net) -> Network:
+    """A JAX ``repro.core.network.Network`` -> the port's ``Network``."""
+    f = _fields(net, Network._fields)
+    block = f["block"]
+    return Network(n=int(f["n"]), pre=np.asarray(f["pre"], np.int32),
+                   post=np.asarray(f["post"], np.int32),
+                   delay=np.asarray(f["delay"], np.float64),
+                   w_ampa=np.asarray(f["w_ampa"], np.float64),
+                   w_gaba=np.asarray(f["w_gaba"], np.float64),
+                   min_delay=float(f["min_delay"]),
+                   block=None if block is None else np.asarray(block, np.int32))
+
+
+def cell_params_from_numpy(p, device) -> CellParams:
+    f = _fields(p, CellParams._fields)
+    return CellParams(**{k: _tensor(v, device) for k, v in f.items()})
+
+
+def cell_params_to_numpy(p) -> dict:
+    return {k: _numpy(v) for k, v in p._asdict().items()}
+
+
+def bdf_state_from_numpy(st, device) -> BDFState:
+    """A (vmapped) JAX ``BDFState`` of numpy arrays -> the port's state."""
+    f = {k: _tensor(v, device) for k, v in _fields(st, BDFState._fields).items()}
+    if f["t"].dim() == 0:                  # one neuron: add the lane axis
+        f = {k: v[None] for k, v in f.items()}
+    return BDFState(**f)
+
+
+def bdf_state_to_numpy(st: BDFState) -> dict:
+    return {k: _numpy(v) for k, v in st._asdict().items()}
+
+
+def event_queue_from_numpy(eq, device) -> EventQueue:
+    f = _fields(eq, EventQueue._fields)
+    return EventQueue(**{k: _tensor(v, device) for k, v in f.items()})
+
+
+def event_queue_to_numpy(eq: EventQueue) -> dict:
+    return {k: _numpy(v) for k, v in eq._asdict().items()}
+
+
+def spike_record_from_numpy(rec, device) -> SpikeRecord:
+    f = _fields(rec, SpikeRecord._fields)
+    return SpikeRecord(**{k: _tensor(v, device) for k, v in f.items()})
+
+
+def spike_record_to_numpy(rec: SpikeRecord) -> dict:
+    return {k: _numpy(v) for k, v in rec._asdict().items()}

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+One subpackage per kernel family, mirroring ``repro.kernels``:
+  <name>.py  - the CUDA wrapper (checks, launch through ctypes, count)
+  ops.py     - dispatch: plain version for CPU tensors, the kernel for
+               CUDA tensors (or raise) -- never a silent fallback
+  ref.py     - the plain PyTorch version
+
+Kernels (sources in ``repro_torch/csrc``, built by ``kernels/build.py``):
+  hines       - K1 tree factor, K2 factored solve   (csrc/hines.cu)
+  hh_rhs      - K4 fused HH rates + ionic current   (csrc/hh_rhs.cu)
+  event_wheel - K5 fused horizon + runnable score   (csrc/horizon.cu)
+"""

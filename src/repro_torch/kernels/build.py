@@ -1,0 +1,125 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` holds plain ``extern "C"`` launchers.  At first use
+it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``repro_torch/_build/`` (listed in ``.gitignore``) and loaded with
+``ctypes``.  The library name carries a hash of the source and flags, so
+an edited source is rebuilt and a stale library is never loaded.
+
+``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into fused
+multiply-adds: the neuron core is float64 and each kernel must keep the
+float operation order of its plain PyTorch version.
+
+Every launcher returns ``cudaGetLastError()``; :func:`check` raises when
+it is not 0.  Each wrapper adds one to its launch counter (``count``)
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("hines", "hh_rhs", "horizon")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_LIBS: dict = {}
+_LOGS: dict = {}
+LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hh_rhs": 0,
+            "horizon_score": 0}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        _LOGS[name] = proc.stderr
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every kernel source at once, one nvcc process per source."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        paths = dict(zip(names, pool.map(build, names)))
+    return paths
+
+
+def ptxas_log(name: str) -> str:
+    """nvcc's ``-Xptxas -v`` report (registers, spills) of the last build."""
+    return _LOGS.get(name, "")
+
+
+def load(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launches() -> dict:
+    return dict(LAUNCHES)

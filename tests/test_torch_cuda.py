@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Needs no JAX (the card's machine has none); every test skips without a
+CUDA device.  Run there with ``PYTHONPATH=src python -m pytest
+--noconftest -m cuda tests/test_torch_cuda.py`` (the suite's conftest
+imports JAX).
+The arithmetic is the same on the card as in the plain versions
+(``repro_torch/core/detmath.py``, ``-fmad=false``), so every comparison is
+bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import morphology, network
+from repro_torch.core.cell import CellModel
+from repro_torch.core.exec_fap import make_fap_vardt_runner
+from repro_torch.core.hines import hines_assemble
+from repro_torch.kernels import build
+from repro_torch.kernels.event_wheel import ops as ew_ops
+from repro_torch.kernels.hh_rhs import ops as hh_ops
+from repro_torch.kernels.hh_rhs import ref as hh_ref
+from repro_torch.kernels.hines import ops as h_ops
+from repro_torch.kernels.hines import ref as h_ref
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _eq(a, b):
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["soma", "ball_and_stick", "branched"])
+def test_kernels_bitwise_equal_to_plain(dev, name):
+    m = morphology.by_name(name)
+    g = torch.Generator().manual_seed(m.n_comp)
+    N, C = 777, m.n_comp
+    par = torch.as_tensor(m.parent, dtype=torch.int32)
+    gax = torch.as_tensor(m.g_axial)
+    d = hines_assemble(m.parent, gax, torch.rand((N, C), generator=g,
+                                                 dtype=torch.float64) + 0.5)
+    b = torch.randn((N, C), generator=g, dtype=torch.float64)
+    build.reset_launches()
+    de = h_ops.hines_factor(par.to(dev), gax.to(dev), d.T.to(dev))
+    _eq(de, h_ref.hines_factor_ref(par, gax, d.T))
+    x = h_ops.hines_solve_factored(par.to(dev), gax.to(dev), de, b.T.to(dev))
+    _eq(x, h_ref.hines_solve_factored_ref(par, gax, de.cpu(), b.T))
+    area = torch.as_tensor(m.area)
+    v = torch.rand((N, C), generator=g, dtype=torch.float64) * 140.0 - 90.0
+    mhn = [torch.rand((N, C), generator=g, dtype=torch.float64)
+           for _ in range(3)]
+    for a, r in zip(hh_ops.hh_rhs(area.to(dev), v.to(dev),
+                                  *[t.to(dev) for t in mhn]),
+                    hh_ref.hh_rhs_ref(area, v, *mhn)):
+        _eq(a, r)
+    net = network.make_network(1000, k_in=16, seed=2)
+    pre, dly = ew_ops.by_post_layout(net, "cpu")
+    tc = torch.rand(1000, generator=g, dtype=torch.float64) * 3.0
+    for a, r in zip(ew_ops.horizon_score(tc.to(dev), pre.to(dev), dly.to(dev),
+                                         t_end=20.0, horizon_cap=2.0),
+                    ew_ops.horizon_score(tc, pre, dly, t_end=20.0,
+                                         horizon_cap=2.0)):
+        _eq(a, r)
+    assert build.launches() == {"hines_factor": 1, "hines_solve_factored": 1,
+                                "hh_rhs": 1, "horizon_score": 1}
+
+
+@pytest.mark.cuda
+def test_main_path_card_equals_cpu(dev):
+    """A short network run: spike trains and final states bitwise equal."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        model = CellModel(morphology.ball_and_stick(), device=d)
+        net = network.make_network(24, k_in=4, seed=3)
+        iinj = 0.3 * (1.0 + 0.2 * np.random.default_rng(0).random(24))
+        res, rounds = make_fap_vardt_runner(model, net, iinj, 6.0,
+                                            horizon_impl="fused", device=d)()
+        out.append((res, rounds))
+    (a, ra), (b, rb) = out
+    assert ra == rb and int(a.rec.count.sum()) > 0
+    _eq(a.rec.times, b.rec.times)
+    _eq(a.y_final, b.y_final)
+    assert int(a.n_steps) == int(b.n_steps)

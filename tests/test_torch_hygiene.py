@@ -1,0 +1,152 @@
+"""Structural rules of the PyTorch port.
+
+* Nothing under ``src/repro_torch/``, and nothing in ``chip_smoke.py``,
+  imports ``jax`` or the JAX package ``repro``.
+* Entry points default to ``device="cuda"`` and raise without a card
+  rather than running on the CPU.
+* A CUDA tensor handed to a kernel dispatcher launches the kernel or
+  raises; it never falls back to the plain version.
+* The neuron core rounds alike on the CPU and the card: no library
+  transcendental or reduction whose last bit differs by device, and no
+  division by a constant (``repro_torch/core/detmath.py``).
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import exec_fap, morphology, network
+from repro_torch.core.cell import CellModel
+from repro_torch.kernels.event_wheel import ops as ew_ops
+from repro_torch.kernels.hh_rhs import ops as hh_ops
+from repro_torch.kernels.hines import ops as hines_ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+OPS_FILES = sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ops.py"))
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_never_imports_jax_or_reference(path):
+    assert path.exists(), path
+    bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_dispatchers_have_no_fallback_path():
+    assert len(OPS_FILES) == 3
+    for path in OPS_FILES:
+        tree = ast.parse(path.read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+
+
+HOST_NUMPY = {"morphology.py", "topology.py", "network.py", "detmath.py"}
+CORE_FILES = [p for p in sorted((ROOT / "src" / "repro_torch" / "core")
+                                .glob("*.py")) if p.name not in HOST_NUMPY] \
+    + sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ref.py"))
+DEVICE_DEPENDENT = {"exp", "expm1", "log", "pow", "sqrt", "mean", "sum"}
+
+
+@pytest.mark.parametrize("path", CORE_FILES, ids=lambda p: p.name)
+def test_core_rounds_alike_on_every_device(path):
+    """Library transcendentals and reductions (``torch.exp(...)``,
+    ``torch.sum(...)``) and ``x / 2.0`` round differently on the CPU and
+    the card."""
+    def constant(e):
+        if isinstance(e, ast.UnaryOp):
+            e = e.operand
+        return isinstance(e, ast.Constant) or (
+            isinstance(e, ast.Attribute) and e.attr.isupper())
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                and isinstance(node.func.value, ast.Name) \
+                and node.func.value.id == "torch":
+            assert node.func.attr not in DEVICE_DEPENDENT, \
+                f"{path.name}:{node.lineno} torch.{node.func.attr}"
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            assert constant(node.left) or not constant(node.right), \
+                f"{path.name}:{node.lineno} division by a constant"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CellModel(morphology.soma_only())
+    model = CellModel(morphology.soma_only(), device="cpu")
+    net = network.make_network(8, k_in=2, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        exec_fap.make_fap_vardt_runner(model, net, 0.1, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        exec_fap.run_fap_vardt(model, net, 0.1, 1.0, horizon_impl="fused")
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor on a machine without a card."""
+    device = torch.device("cuda")
+    shape = (3, 4)
+
+
+def _boom(*_a, **_k):
+    raise RuntimeError("kernel launch refused")
+
+
+@pytest.mark.parametrize("mod,cuda_fn,call", [
+    (hines_ops, "hines_factor_cuda",
+     lambda x: hines_ops.hines_factor(None, None, x)),
+    (hines_ops, "hines_solve_factored_cuda",
+     lambda x: hines_ops.hines_solve_factored(None, None, x, x)),
+    (hh_ops, "hh_rhs_cuda", lambda x: hh_ops.hh_rhs(None, x, x, x, x)),
+    (ew_ops, "horizon_score_cuda",
+     lambda x: ew_ops.horizon_score(x, None, None, t_end=1.0,
+                                    horizon_cap=1.0)),
+])
+def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
+    monkeypatch.setattr(mod, cuda_fn, _boom)
+    with pytest.raises(RuntimeError, match="kernel launch refused"):
+        call(_CudaLike())
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    """The CUDA wrappers themselves refuse host tensors before launching."""
+    from repro_torch.kernels.event_wheel.event_wheel import horizon_score_cuda
+    from repro_torch.kernels.hh_rhs.hh_rhs import hh_rhs_cuda
+    from repro_torch.kernels.hines.hines import hines_factor_cuda
+    x = torch.zeros((3, 4), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        hines_factor_cuda(torch.zeros(3, dtype=torch.int32),
+                          torch.zeros(3, dtype=torch.float64), x)
+    with pytest.raises(ValueError):
+        hh_rhs_cuda(torch.zeros(4, dtype=torch.float64), x, x, x, x)
+    with pytest.raises(ValueError):
+        horizon_score_cuda(torch.zeros(4, dtype=torch.float64),
+                           torch.zeros((2, 4), dtype=torch.int32),
+                           torch.zeros((2, 4), dtype=torch.float64),
+                           t_end=1.0, horizon_cap=1.0)
+
+
+def test_other_devices_are_refused():
+    x = torch.zeros((2, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        hh_ops.hh_rhs(x[0], x, x, x, x)
+    with pytest.raises(ValueError):
+        hines_ops.hines_factor(None, None, x)
