@@ -6,17 +6,32 @@ Phases, each reported on its own lines:
 
   1. setup: the card (nvidia-smi name and power limit), torch's CUDA, nvcc,
      ninja, and the parallel nvcc build of every kernel source;
-  2. every kernel against its plain PyTorch version on the card, at the main
-     path's shapes (K1/K2/K4 at N=16384 with C=13 and C=1, K5 at K=16), with
-     CUDA-event timings (median of 25 runs) and each kernel's bound;
-  3. the main path at full width: ``make_fap_vardt_runner`` on the branched
-     cell (C=13), 16384 neurons with 16 synapses each, regime-mixed
-     currents, ``horizon_impl="fused"`` -- with the kernels' launch counts;
-  4. the same path at N=64 on the card (kernels) and on the CPU (plain
-     versions): per-neuron spike counts equal, spike times within 1e-6 ms
-     (the port rounds alike on both, ``repro_torch/core/detmath.py``);
-  5. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
-     full-width rounds (device busy share, busiest kernels).
+  2. the per-step and horizon kernels against their plain PyTorch versions
+     on the card, at the main path's shapes (K1/K2/K4 at N=16384 with C=13
+     and C=1, K5 at K=16), with CUDA-event timings (median of 25 runs) and
+     each kernel's bound;
+  3. the dense main path at full width: ``make_fap_vardt_runner`` on the
+     branched cell (C=13), 16384 neurons with 16 synapses each,
+     regime-mixed currents, ``horizon_impl="fused"`` -- with the kernels'
+     launch counts;
+  4. the active-set path at the same width, cell, network, currents and
+     t_end: ``batch="compact", batch_cap="auto", fanout="compact",
+     spike_cap="auto", queue="wheel", wheel=WheelSpec.auto(net)`` -- all
+     seven kernels must launch (the auto caps' dense probe is part of it);
+  5. the scheduler kernels K6/K7/K8 against their plain versions on the
+     card, bitwise, at the active path's shapes: its auto caps, the edge
+     table of its network, a spike mask and a key batch that the path
+     itself produced (with timings, bounds and ``torch.nonzero`` beside
+     K6);
+  6. the dense path at N=64 on the card (kernels) and on the CPU (plain
+     versions): spike trains and final states bitwise equal (the port
+     rounds alike on both, ``repro_torch/core/detmath.py``);
+  7. the active path at N=64 with a binding batch cap and a small spike cap
+     (roll-over and dense fan-out fallback both run): card and CPU bitwise
+     equal; on the card ``batch_cap=0`` equals the dense path exactly;
+  8. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
+     full-width rounds of the dense and of the active path (device busy
+     share, busiest kernels).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
@@ -46,16 +61,32 @@ RTOL, ATOL = 1e-12, 1e-14
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS = 34e12             # H100 SXM fp64 outside the tensor cores
 #                                (NVIDIA data sheet)
+INT32_OPS = 33.5e12            # H100 SXM5 peak INT32 outside the tensor cores
+#                                (NVIDIA H100 Tensor Core GPU Architecture
+#                                white paper, table of peak rates)
 SRC = "src/repro_torch/csrc"
 REPLACES = {
     "hines_factor": "src/repro/kernels/hines/hines.py:163",
     "hines_solve_factored": "src/repro/kernels/hines/hines.py:188",
     "hh_rhs": "src/repro/kernels/hh_rhs/hh_rhs.py:46",
     "horizon_score": "src/repro/kernels/event_wheel/event_wheel.py:38",
+    "compact_ids": "src/repro/kernels/event_wheel/event_wheel.py:115",
+    "compact_gather": "src/repro/kernels/event_wheel/event_wheel.py:176",
+    "segment_rank": "src/repro/kernels/event_wheel/event_wheel.py:234",
 }
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
-          "hh_rhs": f"{SRC}/hh_rhs.cu", "horizon_score": f"{SRC}/horizon.cu"}
+          "hh_rhs": f"{SRC}/hh_rhs.cu", "horizon_score": f"{SRC}/horizon.cu",
+          "compact_ids": f"{SRC}/compact.cu",
+          "compact_gather": f"{SRC}/compact.cu",
+          "segment_rank": f"{SRC}/segment_rank.cu"}
+OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
+               "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
+               "compact_gather_kernel", "segment_rank_kernel")
+DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
+              "horizon_score")
+ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
+              spike_cap="auto", queue="wheel")
 
 
 def say(phase, msg):
@@ -103,9 +134,9 @@ def check_close(name, got, ref, exact=False):
     return err
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, rate=FP64_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP64_FLOPS * 1e3
+    t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -221,23 +252,32 @@ def phase_kernels(dev):
         f"{t5p:.4f}) bitwise")
     rows["horizon_score"] = (e5, t5, t5p, *bound_ms(
         12 * K * N + 8 * N + 16 * N, (2 * K + 5) * N))
-    say("kernels", f"all four kernels agree with their plain versions "
+    say("kernels", f"K1/K2/K4/K5 agree with their plain versions "
         f"(rtol {RTOL}, atol {ATOL}; horizon bitwise); launches so far "
         f"{build.launches()}")
     return rows
 
 
 # ---------------------------------------------------------------- phase 3 --
-def _run(dev, n, t_end):
+def _runner(dev, n, t_end, **knobs):
+    """The runner of the branched cell on make_network(n, 16, seed 11) with
+    regime-mixed currents; ``wheel="auto"`` sizes the wheel from the net.
+    Building it runs the auto caps' dense probe."""
     from repro_torch.core.cell import CellModel
     from repro_torch.core.exec_fap import make_fap_vardt_runner
     from repro_torch.core.morphology import branched_tree
     from repro_torch.core.network import make_network
+    from repro_torch.sched import WheelSpec
     model = CellModel(branched_tree(depth=2, seg_per_branch=2), device=dev)
     net = make_network(n, k_in=K_IN, seed=NET_SEED)
-    run = make_fap_vardt_runner(model, net, regime_currents(n), t_end,
-                                horizon_impl="fused", device=dev)
-    return run()
+    if knobs.get("wheel") == "auto":
+        knobs["wheel"] = WheelSpec.auto(net)
+    return make_fap_vardt_runner(model, net, regime_currents(n), t_end,
+                                 horizon_impl="fused", device=dev, **knobs)
+
+
+def _run(dev, n, t_end, **knobs):
+    return _runner(dev, n, t_end, **knobs)()
 
 
 def phase_main(dev, t_end):
@@ -266,16 +306,198 @@ def phase_main(dev, t_end):
         raise AssertionError(f"main path dropped {int(res.dropped)} events")
     if spikes <= 0 or int(res.n_events) <= 0:
         raise AssertionError("main path produced no spikes or no events")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     return launches, dict(rounds=rounds, wall_s=wall, spikes=spikes,
                           n_steps=int(res.n_steps),
                           n_events=int(res.n_events),
-                          n_resets=int(res.n_resets), solver=solver)
+                          n_resets=int(res.n_resets), solver=solver,
+                          counts=res.rec.count.cpu().numpy())
 
 
 # ---------------------------------------------------------------- phase 4 --
+class _Recorder:
+    """Keeps copies of the spike masks that reach K7 and the key batches
+    that reach K8 on the active path (one device copy per call, no host
+    synchronisation), so phase 5 can check the kernels on the path's own
+    inputs.  The wrapped dispatchers still launch and count as before."""
+
+    def __init__(self):
+        from repro_torch.kernels.event_wheel import ops as ew_ops
+        self.ops, self.masks, self.keys = ew_ops, [], []
+        self.real = (ew_ops.compact_gather, ew_ops.segment_rank)
+
+    def __enter__(self):
+        gather, rank = self.real
+
+        def rec_gather(mask, table, cap, **kw):
+            self.masks.append(mask.clone())
+            return gather(mask, table, cap, **kw)
+
+        def rec_rank(key, max_rank):
+            self.keys.append(key.clone())
+            return rank(key, max_rank)
+
+        self.ops.compact_gather, self.ops.segment_rank = rec_gather, rec_rank
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.compact_gather, self.ops.segment_rank = self.real
+
+    @staticmethod
+    def busiest(batches, valid):
+        """The recorded batch with the most valid entries."""
+        return max(batches, key=lambda b: int(valid(b).sum()))
+
+
+def phase_active(dev, t_end, dense):
+    """The active-set path at full width, counts zeroed just before."""
+    from repro_torch.core import exec_common as xc
+    from repro_torch.kernels import build
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Recorder() as seen:
+        run = _runner(dev, N_MAIN, t_end, wheel="auto", **ACTIVE)
+        torch.cuda.synchronize()
+        t_probe = time.perf_counter() - t0
+        res, rounds = run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    spikes = int(res.rec.count.sum())
+    counts = res.rec.count.cpu().numpy()
+    differ = int((counts != dense["counts"]).sum())
+    m = xc.sched_metrics(res.sched)
+    spec = run.wheel
+    say("active", f"N={N_MAIN} C=13 k_in={K_IN} t_end={t_end} ms {ACTIVE}: "
+        f"batch_cap {run.batch_cap}, spike_cap {run.spike_cap}, wheel "
+        f"{spec.n_buckets} buckets x {spec.bucket_slots} slots x "
+        f"{spec.bucket_width} ms")
+    say("active", f"rounds {rounds}, n_steps {int(res.n_steps)}, n_events "
+        f"{int(res.n_events)}, n_resets {int(res.n_resets)}, spikes {spikes}"
+        f" (dense phase {int(dense['counts'].sum())}; {differ} neurons "
+        f"differ in spike count), dropped {int(res.dropped)}, record "
+        f"overflow {int(res.rec.overflow)}, failed {bool(res.failed)}")
+    say("active", f"sched {json.dumps(m)}")
+    say("active", f"wall {wall:.2f} s (probe {t_probe:.2f} s, run "
+        f"{wall - t_probe:.2f} s), {(wall - t_probe) / max(rounds, 1) * 1e3:.1f}"
+        f" ms per round; launches {json.dumps(launches)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if bool(res.failed):
+        raise AssertionError("active path: an integrator failed")
+    if int(res.dropped) != 0 or int(res.rec.overflow) != 0:
+        raise AssertionError(f"active path dropped {int(res.dropped)} events,"
+                             f" record overflow {int(res.rec.overflow)}")
+    if spikes <= 0:
+        raise AssertionError("active path produced no spikes")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"active path never launched {missing}")
+    n_keys = N_MAIN * spec.n_buckets
+    return launches, dict(
+        rounds=rounds, wall_s=wall, probe_s=t_probe, spikes=spikes,
+        spike_count_differs=differ, n_steps=int(res.n_steps),
+        n_events=int(res.n_events), batch_cap=run.batch_cap,
+        spike_cap=run.spike_cap, wheel=list(spec), sched=m,
+        mask=_Recorder.busiest(seen.masks, lambda b: b),
+        keys=_Recorder.busiest(seen.keys, lambda b: b < n_keys))
+
+
+# ---------------------------------------------------------------- phase 5 --
+def rank_compares(key, max_rank):
+    """Compares K8 needs on these keys: all earlier events for a rank below
+    max_rank, else up to the group's max_rank-th earlier member."""
+    E = key.shape[0]
+    if max_rank == 0 or E == 0:
+        return 0
+    order = np.argsort(key, kind="stable")
+    starts = np.searchsorted(key[order], key[order], side="left")
+    r = np.arange(E) - starts
+    stop = order[np.minimum(starts + max_rank - 1, E - 1)] + 1
+    return int(np.where(r < max_rank, order, stop).sum())
+
+
+def phase_sched_kernels(dev, act):
+    """K6/K7/K8 against their plain versions at the active path's shapes."""
+    from repro_torch.core.exec_common import out_edge_table
+    from repro_torch.core.network import make_network
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    from repro_torch.kernels.event_wheel import ref as ew_ref
+    N, rows = N_MAIN, {}
+    gen = np.random.default_rng(7)
+    masks = {d: torch.from_numpy(gen.random(N) < d).to(dev)
+             for d in (0.0, 0.01, 0.5, 1.0)}
+
+    def same(name, got, want):
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: kernel differs from its plain "
+                                     f"version")
+
+    cap = act["batch_cap"]
+    caps = sorted({cap, 256})
+    for c in caps:
+        for d, m in masks.items():
+            same(f"compact_ids cap={c} density={d}", ew_ops.compact_ids(m, c),
+                 ew_ref.compact_ids_ref(m, c))
+    if int(masks[1.0].sum()) <= caps[0]:
+        raise AssertionError("no compact_ids case with a count above cap")
+    m = masks[0.5]
+    t6 = cuda_ms(lambda: ew_ops.compact_ids(m, cap))
+    t6p = cuda_ms(lambda: ew_ref.compact_ids_ref(m, cap))
+    t6l = cuda_ms(lambda: torch.nonzero(m))
+    rows["compact_ids"] = (0.0, t6, t6p, *bound_ms(N + 4 * cap + 4, N,
+                                                   INT32_OPS), t6l)
+    say("sched-kernels", f"compact_ids N={N} caps {caps}, densities "
+        f"{sorted(masks)}: bitwise; {t6:.4f} ms (plain {t6p:.4f}, "
+        f"torch.nonzero {t6l:.4f})")
+
+    net = make_network(N, k_in=K_IN, seed=NET_SEED)
+    table = torch.as_tensor(out_edge_table(net), device=dev).contiguous()
+    E, MO = int(net.pre.shape[0]), int(table.shape[1])
+    s_cap = act["spike_cap"]
+    real = act["mask"]
+    for d, mm in [("path", real)] + list(masks.items()):
+        same(f"compact_gather spike_cap={s_cap} mask={d}",
+             ew_ops.compact_gather(mm, table, s_cap, fill=E),
+             ew_ref.compact_gather_ref(mm, table, s_cap, E))
+    n_real = int(real.sum())
+    t7 = cuda_ms(lambda: ew_ops.compact_gather(real, table, s_cap, fill=E))
+    t7p = cuda_ms(lambda: ew_ref.compact_gather_ref(real, table, s_cap, E))
+    filled = min(n_real, s_cap)
+    rows["compact_gather"] = (0.0, t7, t7p, *bound_ms(
+        N + 4 * filled * MO + 4 * s_cap * (MO + 1) + 4, N + s_cap * MO,
+        INT32_OPS), None)
+    say("sched-kernels", f"compact_gather N={N} MO={MO} spike_cap={s_cap} "
+        f"fill=E={E}, path mask with {n_real} spikes and densities "
+        f"{sorted(masks)}: bitwise; {t7:.4f} ms (plain {t7p:.4f})")
+
+    keys = act["keys"]
+    S, B = act["wheel"][1], act["wheel"][0]
+    n_keys = N * B
+    bad = keys.clone()
+    bad[::7] = n_keys                                # more invalid keys
+    for name, k in (("path", keys), ("path+invalid", bad)):
+        same(f"segment_rank {name} max_rank={S}",
+             (ew_ops.segment_rank(k, S),), (ew_ref.segment_rank_ref(k, S),))
+    Ek = int(keys.shape[0])
+    n_valid = int((keys < n_keys).sum())
+    t8 = cuda_ms(lambda: ew_ops.segment_rank(keys, S))
+    t8p = cuda_ms(lambda: ew_ref.segment_rank_ref(keys, S))
+    ops = rank_compares(keys.cpu().numpy(), S)
+    rows["segment_rank"] = (0.0, t8, t8p, *bound_ms(8 * Ek, ops, INT32_OPS),
+                            None)
+    say("sched-kernels", f"segment_rank E={Ek} ({n_valid} valid keys "
+        f"target*{B}+bucket, the rest N*B) max_rank={S}: bitwise; {t8:.4f} "
+        f"ms (plain {t8p:.4f}); {ops} compares needed (of "
+        f"{Ek * (Ek - 1) // 2} pairs) at {INT32_OPS:.3g} int32 ops/s")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 6 --
 def phase_card_vs_cpu(dev, n=64, t_end=10.0):
     t0 = time.perf_counter()
     gpu, _ = _run(dev, n, t_end)
@@ -299,22 +521,73 @@ def phase_card_vs_cpu(dev, n=64, t_end=10.0):
         raise AssertionError(f"spike times differ card vs CPU by {dt} ms")
 
 
-def phase_profile(dev, n_rounds, t_end, skip=54):
+# ---------------------------------------------------------------- phase 7 --
+def _same_run(a, b):
+    return (torch.equal(a.rec.times.cpu(), b.rec.times.cpu())
+            and torch.equal(a.rec.count.cpu(), b.rec.count.cpu())
+            and torch.equal(a.y_final.cpu(), b.y_final.cpu())
+            and int(a.n_steps) == int(b.n_steps)
+            and int(a.n_events) == int(b.n_events))
+
+
+def phase_active_card_vs_cpu(dev, n=64, t_end=10.0, batch_cap=16,
+                             spike_cap=2):
+    """The active path with a binding batch cap (roll-over) and a small
+    spike cap (dense fan-out fallback): card == CPU bitwise; on the card
+    batch_cap=0 == the dense path."""
+    from repro_torch.core import exec_common as xc
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    kw = dict(ACTIVE, wheel="auto", batch_cap=batch_cap, spike_cap=spike_cap)
+    dense_fanout = xc.fanout_edges
+    fallbacks = []
+
+    def counting(*a):
+        fallbacks.append(1)
+        return dense_fanout(*a)
+
+    xc.fanout_edges = counting
+    build.reset_launches()
+    try:
+        gpu, rg = _run(dev, n, t_end, **kw)
+    finally:
+        xc.fanout_edges = dense_fanout
+    compact_inserts = build.launches()["compact_gather"] - len(fallbacks)
+    cpu, rc = _run("cpu", n, t_end, **kw)
+    rolled = int(gpu.sched.runnable) - int(gpu.sched.stepped)
+    same = _same_run(gpu, cpu) and rg == rc
+    say("active-card-vs-cpu", f"N={n} C=13 t_end={t_end} ms batch_cap="
+        f"{batch_cap} spike_cap={spike_cap} wheel: rounds card {rg} cpu {rc};"
+        f" spikes {int(gpu.rec.count.sum())}; n_steps card "
+        f"{int(gpu.n_steps)} cpu {int(cpu.n_steps)}; {rolled} lane-rounds "
+        f"rolled over, {compact_inserts} compact and {len(fallbacks)} dense "
+        f"fan-outs; spike trains, n_steps and final states bitwise equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError("active path differs card vs CPU")
+    if int(cpu.rec.count.sum()) == 0 or int(gpu.dropped) != 0:
+        raise AssertionError("active card-vs-CPU run: no spikes or drops")
+    if rolled <= 0 or not fallbacks or compact_inserts <= 0:
+        raise AssertionError("active card-vs-CPU run missed the roll-over, "
+                             "the compact fan-out or its dense fallback")
+    full, rf = _run(dev, n, t_end, **dict(kw, batch_cap=0))
+    dense, rd = _run(dev, n, t_end, queue="wheel", wheel="auto")
+    same0 = _same_run(full, dense) and rf == rd \
+        and int(full.dropped) == int(dense.dropped) == 0
+    say("active-card-vs-cpu", f"card, batch_cap=0 vs dense twin: rounds "
+        f"{rf} vs {rd}, identical: {same0} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same0:
+        raise AssertionError("batch_cap=0 differs from the dense path")
+
+
+def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
-    ``n_rounds`` rounds of the main path after ``skip`` unprofiled ones (the
+    ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
     spiking part of the run): wall time, summed device time, device busy
     share, launches and the busiest device kernels."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.cell import CellModel
-    from repro_torch.core.exec_fap import make_fap_vardt_runner
-    from repro_torch.core.morphology import branched_tree
-    from repro_torch.core.network import make_network
-    model = CellModel(branched_tree(depth=2, seg_per_branch=2), device=dev)
-    run = make_fap_vardt_runner(model, make_network(N_MAIN, k_in=K_IN,
-                                                    seed=NET_SEED),
-                                regime_currents(N_MAIN), t_end,
-                                horizon_impl="fused", device=dev)
+    run = _runner(dev, N_MAIN, t_end, **knobs)
     carry = run.init_carry()
     for _ in range(skip):
         carry = run.round_body(carry)
@@ -330,11 +603,17 @@ def phase_profile(dev, n_rounds, t_end, skip=54):
     ev = [e for e in timed if str(e.device_type).endswith("CUDA")] or timed
     dev_us = sum(e.self_device_time_total for e in ev)
     launches = sum(e.count for e in ev)
-    say("profile", f"rounds {skip}..{skip + n_rounds - 1}: wall "
+    say("profile", f"{path} path, rounds {skip}..{skip + n_rounds - 1}: wall "
         f"{wall_us / n_rounds / 1e3:.1f} ms per round (profiled), device "
         f"{dev_us / n_rounds / 1e3:.2f} ms per round, busy share "
         f"{dev_us / wall_us:.3f}, {launches / n_rounds:.0f} device ops per "
         f"round")
+    ours = [e for e in ev if any(k in e.key for k in OUR_KERNELS)]
+    ours_us = sum(e.self_device_time_total for e in ours)
+    say("profile", f"{path} path: the ported kernels "
+        f"{ours_us / n_rounds / 1e3:.3f} ms per round, "
+        f"{ours_us / max(dev_us, 1e-9):.3f} of device time, "
+        f"{sum(e.count for e in ours) / n_rounds:.0f} launches per round")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
         say("profile", f"  {e.key[:60]:60s} {e.count / n_rounds:8.0f}/round "
             f"{e.self_device_time_total / n_rounds / 1e3:8.3f} ms/round")
@@ -358,20 +637,33 @@ def main(argv=None):
     smi = phase_setup()
     rows = phase_kernels(dev)
     launches, main_stats = phase_main(dev, args.t_end)
+    act_launches, act = phase_active(dev, args.t_end, main_stats)
+    rows.update(phase_sched_kernels(dev, act))
     phase_card_vs_cpu(dev)
+    phase_active_card_vs_cpu(dev)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
+        phase_profile(dev, args.profile, args.t_end, path="active",
+                      wheel="auto", **dict(ACTIVE, batch_cap=act["batch_cap"],
+                                           spike_cap=act["spike_cap"]))
+    launches.update({k: act_launches[k] for k in REPLACES
+                     if k not in DENSE_PATH})
     kernels = [{"name": k, "route": "cuda", "source": SOURCE[k],
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": rows[k][0], "ms": rows[k][1],
                 "plain_ms": rows[k][2], "bound_ms": rows[k][3],
-                "bound_by": rows[k][4], "library_ms": None}
+                "bound_by": rows[k][4],
+                "library_ms": rows[k][5] if len(rows[k]) > 5 else None}
                for k in REPLACES]
+    main_stats.pop("counts")
+    for k in ("mask", "keys"):
+        act.pop(k)
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"gpu": smi, "kernels": kernels, "main": main_stats}, indent=1))
+            {"gpu": smi, "kernels": kernels, "main": main_stats,
+             "active": act, "active_launches": act_launches}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
-"""Shared pieces of the execution models (dense path): spike detection,
-synaptic fan-out, the dependency horizon, batched state initialisation and
-device-side network arrays.  Counterpart of ``repro.core.exec_common``."""
+"""Shared pieces of the execution models: spike detection, synaptic
+fan-out (dense and compact), the dependency horizon, active-set compaction,
+batched state initialisation and device-side network arrays.  Counterpart
+of ``repro.core.exec_common``."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import bdf
+from repro_torch.core import events as ev
 from repro_torch.core.cell import CellModel
 from repro_torch.core.network import Network
 
@@ -108,20 +112,184 @@ def solver_stats(sts) -> dict:
             "nreset": sts.nreset.sum()}
 
 
+def select_active(runnable, t_clock, cap: int, n_iters: int = 48):
+    """Earliest-``cap`` restriction of the runnable frontier, sort-free
+    (``select_threshold`` bisection on counts).  With ``cap`` or fewer
+    runnable the mask comes back unchanged; the globally earliest runnable
+    neuron is always kept."""
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    score = torch.where(runnable, t_clock, torch.inf)
+    tau = ew_ops.select_threshold(score, cap, n_iters=n_iters)
+    return runnable & (score <= tau)
+
+
+def out_tables(net):
+    """Host-side by-pre grouping of the static edge list: per neuron i the
+    postsynaptic targets (sentinel N) and edge-list positions (sentinel E)
+    of its out-edges, padded to the max out-degree -- array-identical to
+    ``repro.core.exec_common.out_tables``."""
+    pre = np.asarray(net.pre)
+    post = np.asarray(net.post)
+    n, E = int(net.n), int(pre.shape[0])
+    deg = np.bincount(pre, minlength=n)
+    mo = int(deg.max()) if E else 1
+    order = np.argsort(pre, kind="stable")
+    starts = np.zeros(n + 1, np.int64)
+    starts[1:] = np.cumsum(deg)
+    rank_in_pre = np.arange(E) - starts[pre[order]]
+    post_t = np.full((n, mo), n, np.int32)
+    post_t[pre[order], rank_in_pre] = post[order]
+    edge_t = np.full((n, mo), E, np.int32)
+    edge_t[pre[order], rank_in_pre] = order
+    return post_t, edge_t
+
+
+def out_post_table(net) -> np.ndarray:
+    """Row i: postsynaptic targets of neuron i's out-edges, sentinel N (the
+    incremental horizon's moved-row lookup)."""
+    return out_tables(net)[0]
+
+
+def out_edge_table(net) -> np.ndarray:
+    """Row i: edge-list positions of neuron i's out-edges, sentinel E (the
+    compact fan-out's gather table)."""
+    return out_tables(net)[1]
+
+
 def make_spike_insert(net, dnet: DeviceNet, qops, qinsert,
-                      fanout: str = "dense", spike_cap: int = 256):
-    """The fan-out + insert stage: ``fn(eq, spiked[N], t_spike[N]) -> eq``.
-    Only ``fanout="dense"`` (all E edges + the net's best insert) is
-    ported."""
-    if fanout == "compact":
-        raise NotImplementedError(
-            "fanout='compact' (kernel K7) comes in a later slice of the port "
-            "(ROADMAP queue 1, item 7)")
-    if fanout != "dense":
+                      fanout: str = "dense", spike_cap: int = 256,
+                      edge_table=None):
+    """The fan-out + insert stage: ``fn(eq, spiked[N], t_spike[N]) -> eq``
+    (at most one spike per neuron per call).
+
+    ``dense``   -- all E edges through the net's best insert.
+    ``compact`` -- the compact-gather kernel (K7) emits the spiked
+                   lanes' out-edge ids (``out_edge_table`` rows) and their
+                   count; when at most ``spike_cap`` lanes spiked, the
+                   fixed [spike_cap * MO] batch goes through the queue's
+                   batch insert, and more spikes fall back to the dense
+                   branch (the same events, never a drop).
+    """
+    if fanout not in ("dense", "compact"):
         raise ValueError(f"unknown fanout mode {fanout!r}")
 
     def dense_ins(eq, spiked, t_sp):
         tgt, t_ev, wa, wg, valid = fanout_edges(dnet, spiked, t_sp)
         return qinsert(eq, tgt, t_ev, wa, wg, valid)
 
-    return dense_ins
+    if fanout == "dense":
+        return dense_ins
+
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    n, E = int(net.n), int(dnet.pre.shape[0])
+    cap = min(int(spike_cap), n) if spike_cap > 0 else min(n, 256)
+    edge_tbl = torch.as_tensor(
+        out_edge_table(net) if edge_table is None else edge_table,
+        dtype=torch.int32, device=dnet.pre.device).contiguous()
+
+    def compact_ins(eq, ids, eids, t_sp):
+        idc = torch.clamp(ids, max=n - 1).long()
+        ok = (ids < n)[:, None] & (eids < E)                  # [cap, MO]
+        eidc = torch.clamp(eids, max=E - 1).long()
+        t_ev = t_sp[idc][:, None] + dnet.delay[eidc]
+        return qops.insert_batch(eq, dnet.post[eidc].reshape(-1),
+                                 t_ev.reshape(-1),
+                                 dnet.w_ampa[eidc].reshape(-1),
+                                 dnet.w_gaba[eidc].reshape(-1),
+                                 ok.reshape(-1))
+
+    def ins(eq, spiked, t_sp):
+        ids, eids, cnt = ew_ops.compact_gather(spiked, edge_tbl, cap, fill=E)
+        if int(cnt) > cap:
+            return dense_ins(eq, spiked, t_sp)
+        return compact_ins(eq, ids, eids, t_sp)
+
+    return ins
+
+
+def auto_batch_cap(stats: SchedStats, n: int, *, slack: float = 2.0,
+                   floor: int = 32) -> int:
+    """``batch_cap`` from a probe run's frontier telemetry: the mean
+    runnable frontier per round times ``slack``, rounded up to a power of
+    two, clipped to [floor, n]."""
+    rounds = max(1, int(stats.rounds))
+    mean_frontier = float(stats.runnable) / rounds
+    want = max(float(floor), slack * mean_frontier)
+    return min(n, 1 << max(0, int(np.ceil(np.log2(want)))))
+
+
+def auto_spike_cap(rec, stats: SchedStats, n: int, *, slack: float = 4.0,
+                   floor: int = 16) -> int:
+    """``spike_cap`` from a probe run's spike-rate telemetry: mean spikes
+    per round times ``slack``, rounded up to a power of two, clipped to
+    [floor, n].  Undershooting only costs the dense fallback."""
+    rounds = max(1, int(stats.rounds))
+    mean_spikes = float(rec.count.sum()) / rounds
+    want = max(float(floor), slack * mean_spikes)
+    return min(n, 1 << max(0, int(np.ceil(np.log2(want)))))
+
+
+def compact_frontier(runnable, t_clock, cap: int, n_iters: int = 48):
+    """Select and compact the runnable frontier into a [cap] gather-id
+    batch: (ids i32[cap] -- unique lane ids, sentinel N; count i32[] --
+    selected lanes, may exceed cap: the overflow rolls to a later round).
+
+    When the cap binds, the earliest-clock lanes are kept
+    (``select_active``) and the globally earliest runnable lane is forced
+    in, replacing the last filled slot if the index-ordered compaction
+    left it out (bisection-resolution ties could crowd it out and starve
+    the lane the progress argument depends on).  Tensor ops only, no host
+    synchronisation."""
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    n = t_clock.shape[0]
+    sel = select_active(runnable, t_clock, cap, n_iters) if cap < n \
+        else runnable
+    ids, cnt = ew_ops.compact_ids(sel, cap)
+    if cap < n:
+        score = torch.where(runnable, t_clock, torch.inf)
+        earliest = torch.argmin(score).to(ids.dtype)
+        have = (ids == earliest).any() | ~runnable.any()
+        last = torch.clamp(torch.minimum(cnt, torch.full_like(cnt, cap)) - 1,
+                           min=0)
+        forced = ids.scatter(0, last.long().reshape(1), earliest.reshape(1))
+        ids = torch.where(have, ids, forced)
+    return ids, cnt
+
+
+def unique_pad_ids(ids, n: int):
+    """Sentinel padding (>= n) remapped to distinct out-of-range ids
+    n, n+1, ...: every write of a scatter then has its own row."""
+    pad = n + torch.arange(ids.shape[0], dtype=ids.dtype, device=ids.device)
+    return torch.where(ids < n, ids, pad)
+
+
+def _pad_rows(x, rows: int):
+    return torch.cat([x, x.new_zeros((rows,) + tuple(x.shape[1:]))])
+
+
+def scatter_at(full, ids, vals):
+    """``full`` with rows ``ids`` set to ``vals``; sentinel ids (>= N) are
+    dropped, never clipped onto a live row.  The padding goes to its own
+    rows past N (``unique_pad_ids``), which are sliced off."""
+    n, cap = full.shape[0], ids.shape[0]
+    out = _pad_rows(full, cap)
+    out.index_copy_(0, unique_pad_ids(ids, n).long(), vals)
+    return out[:n]
+
+
+def scatter_lanes(full, batch, ids):
+    """Scatter advanced lanes of a batched state back
+    (``bdf.scatter_lanes`` on padded fields); sentinel ids are dropped.
+    ``ids`` holds unique in-range lanes (the compaction guarantees it)."""
+    n, cap = full.t.shape[0], ids.shape[0]
+    padded = type(full)(*[_pad_rows(x, cap) for x in full])
+    out = bdf.scatter_lanes(padded, unique_pad_ids(ids, n).long(), batch)
+    return type(full)(*[x[:n] for x in out])
+
+
+def spike_rates(rec: ev.SpikeRecord, t_lo: float, t_hi: float):
+    """Per-neuron firing rate (Hz) in a window; times in ms."""
+    m = (rec.times >= t_lo) & (rec.times < t_hi)
+    window_s = torch.full((), (t_hi - t_lo) * 1e-3, dtype=torch.float64,
+                          device=rec.times.device)
+    return m.sum(dim=1).to(torch.float64) / window_s

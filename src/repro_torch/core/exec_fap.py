@@ -11,6 +11,12 @@ scheduler round:
      clamped at min(horizon, next event) -- never speculative;
   3. spikes fan out as events (t_spike + delay) into destination queues.
 
+The active-set knobs (``batch="compact"``, ``fanout="compact"``,
+``queue="wheel"``, ``select="threshold"``, the auto caps and the
+incremental horizon) make a round's cost follow activity; on a card they
+run the compaction (K6), compact-gather (K7) and segment-rank (K8)
+kernels.
+
 The JAX runner is one ``lax.while_loop`` over rounds; here the rounds are a
 host loop that checks the same ``cond`` every round.  Once every clock has
 reached ``t_end - 1e-9`` or a lane failed, the loop stops, exactly where
@@ -42,18 +48,41 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
                           eg_window: float = 0.0, horizon_cap: float = 2.0,
                           k_select: int = 0, step_budget: int = 12,
                           ev_cap: int = EV_CAP, max_rounds: int = 1_000_000,
-                          queue: str = "dense", select: str = "sort",
-                          horizon_impl: str = "scatter", n_bisect: int = 48,
-                          batch: str = "dense", batch_cap=0,
-                          fanout: str = "dense", spike_cap: int = 0,
-                          device="cuda"):
+                          queue: str = "dense",
+                          wheel: sched.WheelSpec = sched.WheelSpec(),
+                          select: str = "sort", horizon_impl: str = "scatter",
+                          n_bisect: int = 48, batch: str = "dense",
+                          batch_cap=0, fanout: str = "dense", spike_cap=0,
+                          probe_t: float = 5.0, device="cuda"):
     """Variable-step FAP (method 2c, the paper's reference method).
 
     eg_window:    0 -> precise delivery (2c-); dt/2 or dt -> grouped variants.
     k_select:     0 -> all runnable neurons advance each round; K>0 keeps
-                  the K earliest (``select="sort"``).
+                  the K earliest.
+    queue:        "dense" (slot queue) or "wheel" (bucketed event wheel,
+                  geometry ``wheel``; its batch insert ranks with K8).
+    select:       "sort" (kth of a sort) or "threshold" (bisection on
+                  counts; inside ``fused_horizon_select`` under "fused").
     horizon_impl: "scatter" (edge scatter-min) or "fused" (the horizon
-                  kernel over the static by-post layout).
+                  kernel K5 over the static by-post layout).
+    batch:        "dense" advances over all N lanes; "compact" compacts the
+                  runnable mask (K6) into a [batch_cap] gather-id batch,
+                  advances only that batch and scatters it back.  When the
+                  frontier overflows the cap the earliest clocks are kept
+                  (the globally earliest lane always) and the rest roll to
+                  later rounds.  batch_cap <= 0 means N; "auto" runs a
+                  short dense probe (min(t_end, probe_t) ms) and picks the
+                  cap from its frontier telemetry (``run.batch_cap``).
+                  Under "compact" with the "scatter" horizon on a grouped
+                  net the horizon is kept incrementally: only rows fed by
+                  a moved clock are recomputed (bitwise equal to the full
+                  scatter-min, min being exact); it rides the round carry.
+    fanout:       "dense" fans every spike over all E edges; "compact"
+                  gathers only the <= spike_cap spiking lanes' out-edges
+                  (K7) and inserts that batch; more spikes fall back to the
+                  dense branch.  spike_cap <= 0 means the batch cap under
+                  batch="compact", else min(N, 256); "auto" sizes it from
+                  the probe's spike rate (``run.spike_cap``).
     iinj:         injected soma current (nA), a scalar or one per neuron.
     device:       "cuda" (default; raises without a card) or "cpu".
 
@@ -63,61 +92,145 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, runner on {dev}")
-    if batch == "compact" or batch_cap not in (0, None):
-        raise _later("batch='compact' (kernel K6)", 7)
-    if batch != "dense":
+    n = net.n
+    if batch not in ("dense", "compact"):
         raise ValueError(f"unknown batch mode {batch!r}")
-    if select == "threshold":
-        raise _later("select='threshold'", 7)
-    if select != "sort":
+    if select not in ("sort", "threshold"):
         raise ValueError(f"unknown select {select!r}")
     if horizon_impl not in ("scatter", "fused"):
         raise ValueError(f"unknown horizon_impl {horizon_impl!r}")
-    if spike_cap not in (0, None):
-        raise _later("spike_cap (compact fan-out, kernel K7)", 7)
-    n = net.n
+    if batch_cap == "auto" or spike_cap == "auto":
+        # one dense probe run serves both auto caps
+        probe = make_fap_vardt_runner(
+            model, net, iinj, min(t_end, probe_t), opts=opts,
+            eg_window=eg_window, horizon_cap=horizon_cap,
+            k_select=k_select, step_budget=step_budget, ev_cap=ev_cap,
+            max_rounds=max_rounds, queue=queue, wheel=wheel, select=select,
+            horizon_impl=horizon_impl, n_bisect=n_bisect, device=dev)
+        pres, _ = probe()
+        if batch_cap == "auto":
+            batch_cap = xc.auto_batch_cap(pres.sched, n)
+        if spike_cap == "auto":
+            spike_cap = xc.auto_spike_cap(pres.rec, pres.sched, n)
+    cap = n if batch_cap <= 0 else min(int(batch_cap), n)
+    s_cap = spike_cap if spike_cap > 0 else \
+        (cap if batch == "compact" else min(n, 256))
     dnet = xc.to_device(net, dev)
     iinj_v = torch.as_tensor(iinj, dtype=torch.float64, device=dev)
     iinj_v = iinj_v.expand(n).contiguous()
     neuron_ids = torch.arange(n, dtype=torch.int64, device=dev)
     advance = make_vardt_advance(model, opts, eg_window, step_budget)
-    qops = sched.get_queue_ops(queue, ev_cap=ev_cap)
+    qops = sched.get_queue_ops(queue, ev_cap=ev_cap, wheel=wheel)
     qinsert = sched.edge_insert(qops, net)
-    spike_ins = xc.make_spike_insert(net, dnet, qops, qinsert, fanout)
     if horizon_impl == "fused":
         pre_byk, delay_byk = ew_ops.by_post_layout(net, dev)
+    # incremental horizon: compact + scatter impl + grouped net
+    incremental = (batch == "compact" and horizon_impl == "scatter"
+                   and sched.grouped_k(net) is not None)
+    edge_tbl = None
+    if incremental:
+        pre_byk, delay_byk = ew_ops.by_post_layout(net, dev)
+        post_np, edge_np = xc.out_tables(net)     # one grouping pass serves
+        out_post = torch.as_tensor(post_np, dtype=torch.int64, device=dev)
+        if fanout == "compact":                   # horizon and fan-out
+            edge_tbl = edge_np
+        pre_byk_l = pre_byk.long()
+    spike_ins = xc.make_spike_insert(net, dnet, qops, qinsert, fanout, s_cap,
+                                     edge_table=edge_tbl)
+
+    def _horizon_rows(t_clock, p):
+        """Horizon of the (sentinel-padded) post set ``p`` from the current
+        clocks: the min/clamp chain of the full scatter-min."""
+        pc = torch.clamp(p, max=n - 1)
+        cand = t_clock[pre_byk_l[:, pc]] + delay_byk[:, pc]   # [K, |p|]
+        hor_p = torch.clamp(cand.amin(dim=0), max=t_end)
+        return torch.minimum(hor_p, t_clock[pc] + horizon_cap)
+
+    def _insert_spikes(eq, spiked_b, tsp_b, ids):
+        spiked = xc.scatter_at(torch.zeros((n,), dtype=torch.bool,
+                                           device=dev), ids, spiked_b)
+        t_sp = xc.scatter_at(torch.zeros((n,), dtype=torch.float64,
+                                         device=dev), ids, tsp_b)
+        return spike_ins(eq, spiked, t_sp)
 
     def round_body(carry):
-        sts, eq, rec, n_ev, n_rs, stats, rounds = carry
+        if incremental:
+            sts, eq, rec, horizon, n_ev, n_rs, stats, rounds = carry
+        else:
+            sts, eq, rec, n_ev, n_rs, stats, rounds = carry
         t_clock = sts.t
-        if horizon_impl == "fused":
+        if incremental:
+            runnable = xc.runnable_mask(t_clock, horizon)
+        elif horizon_impl == "fused":
             horizon, runnable = ew_ops.fused_horizon_select(
                 t_clock, pre_byk, delay_byk, t_end=t_end,
-                horizon_cap=horizon_cap, n_iters=n_bisect)
+                horizon_cap=horizon_cap, n_iters=n_bisect,
+                k_select=k_select if select == "threshold" else 0)
         else:
             horizon = xc.horizon_times(dnet, n, t_clock, t_end,
                                        horizon_cap=horizon_cap)
             runnable = xc.runnable_mask(t_clock, horizon)
-        if k_select > 0:
+        if k_select > 0 and select == "threshold" and \
+                (incremental or horizon_impl == "scatter"):
+            score = torch.where(runnable, t_clock, torch.inf)
+            tau = ew_ops.select_threshold(score, k_select, n_iters=n_bisect)
+            runnable = runnable & (score <= tau)
+        if k_select > 0 and select == "sort":
             # earliest-neuron-steps-next: keep only the K earliest runnable
             score = torch.where(runnable, t_clock, torch.inf)
             kth = torch.sort(score).values[min(k_select, n) - 1]
             runnable = runnable & (score <= kth)
         n_runnable = runnable.sum()
 
-        sts, eq_t, spiked, t_sp, nd, nrs = advance(
-            sts, eq.t, eq.w_ampa, eq.w_gaba, horizon, runnable, iinj_v)
-        eq = eq._replace(t=eq_t)
-        rec = ev.record_spikes(rec, neuron_ids, t_sp, spiked)
-        if bool(spiked.any()):
-            # a spike-free round inserts nothing: skipping it is identical
-            eq = spike_ins(eq, spiked, t_sp)
-        stats = xc.SchedStats(stats.runnable + n_runnable,
-                              stats.stepped + n_runnable,
-                              stats.lanes + n,
-                              stats.rounds + 1)
-        return (sts, eq, rec, n_ev + nd.sum().to(torch.int32),
-                n_rs + nrs.sum().to(torch.int32), stats, rounds + 1)
+        if batch == "compact":
+            # compact -> step -> scatter: only the frontier pays the step
+            ids, _ = xc.compact_frontier(runnable, t_clock, cap, n_bisect)
+            lane_ok = ids < n
+            idc = torch.clamp(ids, max=n - 1).long()
+            sts_b = bdf.gather_lanes(sts, idc)
+            t_b_prev = sts_b.t
+            eqt_b, eqa_b, eqg_b = sched.gather_rows(eq, idc)
+            sts_b, eqt_b, spiked_b, tsp_b, nd, nrs = advance(
+                sts_b, eqt_b, eqa_b, eqg_b, horizon[idc], lane_ok,
+                iinj_v[idc])
+            sts = xc.scatter_lanes(sts, sts_b, ids)
+            eq = sched.scatter_rows(eq, ids, eqt_b)
+            rec = ev.record_spikes(rec, ids, tsp_b, spiked_b)
+            if bool(spiked_b.any()):
+                # a spike-free round inserts nothing: skipping is identical
+                eq = _insert_spikes(eq, spiked_b, tsp_b, ids)
+            if incremental:
+                # only rows fed by a moved clock can change: the batch's
+                # out-neighbours, plus the batch lanes' own cap terms
+                moved = lane_ok & (sts_b.t != t_b_prev)
+                outp = torch.where(moved[:, None], out_post[idc], n)
+                p = torch.cat([ids.long(), outp.reshape(-1)])
+                # rows past N go to a dump slot; a row listed twice gets
+                # the same value from each writer
+                hor = torch.cat([horizon, horizon.new_zeros(1)])
+                hor[torch.clamp(p, max=n)] = _horizon_rows(sts.t, p)
+                horizon = hor[:n]
+            stats = xc.SchedStats(stats.runnable + n_runnable,
+                                  stats.stepped + lane_ok.sum(),
+                                  stats.lanes + cap,
+                                  stats.rounds + 1)
+        else:
+            sts, eq_t, spiked, t_sp, nd, nrs = advance(
+                sts, eq.t, eq.w_ampa, eq.w_gaba, horizon, runnable, iinj_v)
+            eq = eq._replace(t=eq_t)
+            rec = ev.record_spikes(rec, neuron_ids, t_sp, spiked)
+            if bool(spiked.any()):
+                # a spike-free round inserts nothing: skipping is identical
+                eq = spike_ins(eq, spiked, t_sp)
+            stats = xc.SchedStats(stats.runnable + n_runnable,
+                                  stats.stepped + n_runnable,
+                                  stats.lanes + n,
+                                  stats.rounds + 1)
+        out = (sts, eq, rec, n_ev + nd.sum().to(torch.int32),
+               n_rs + nrs.sum().to(torch.int32), stats, rounds + 1)
+        if incremental:
+            out = out[:3] + (horizon,) + out[3:]
+        return out
 
     def cond(carry):
         sts, rounds = carry[0], carry[-1]
@@ -130,20 +243,36 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
         eq = qops.make(n, dev)
         rec = ev.make_spike_record(n, SPK_CAP, dev)
         z = torch.zeros((), dtype=torch.int32, device=dev)
-        return sts, eq, rec, z, z, xc.SchedStats.zeros(dev), 0
+        carry = sts, eq, rec, z, z, xc.SchedStats.zeros(dev), 0
+        if incremental:
+            hor0 = xc.horizon_times(dnet, n, sts.t, t_end,
+                                    horizon_cap=horizon_cap)
+            carry = carry[:3] + (hor0,) + carry[3:]
+        return carry
 
-    def run():
+    def run(**unported):
+        if unported:
+            raise _later("the robustness knobs of run()", 10)
         carry = init_carry()
         while cond(carry):
             carry = round_body(carry)
-        sts, eq, rec, n_ev, n_rs, stats, rounds = carry
+        sts, eq, rec = carry[:3]
+        n_ev, n_rs, stats, rounds = carry[-4:]
         return RunResult(rec, sts.nst.sum(), n_ev, n_rs, eq.dropped,
                          sts.failed.any(), sts.zn[:, 0], stats,
                          solver=xc.solver_stats(sts)), rounds
 
+    def tenant_round(carry, iinj, active, k_qos=0):
+        raise _later("tenant_round (multi-tenant serving)", 11)
+
     run.init_carry = init_carry
     run.round_body = round_body
+    run.tenant_round = tenant_round
     run.cond = cond
+    run.incremental = incremental
+    run.batch_cap = cap
+    run.spike_cap = s_cap
+    run.wheel = wheel if queue == "wheel" else None
     return run
 
 

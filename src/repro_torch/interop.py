@@ -1,8 +1,10 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 Converts the JAX package's ``Network``, ``CellParams``, ``BDFState``,
-``EventQueue`` and ``SpikeRecord`` -- handed over as NamedTuples (or any
-object with those fields) of numpy arrays -- into the port's tensors, and
+``EventQueue``, ``WheelQueue``, ``SpikeRecord`` and the incremental
+horizon of the compact runner's carry -- handed over as NamedTuples (or
+any object with those fields) of numpy arrays -- into the port's tensors,
+and
 the port's back into dicts of numpy arrays that rebuild the JAX
 NamedTuples with ``Cls(**d)``.  Nothing here imports the JAX package: the
 caller does the ``np.asarray`` on its side.
@@ -20,6 +22,7 @@ from repro_torch.core.bdf import BDFState
 from repro_torch.core.cell import CellParams
 from repro_torch.core.events import EventQueue, SpikeRecord
 from repro_torch.core.network import Network
+from repro_torch.sched.wheel import WheelQueue
 
 _INT = (np.int8, np.int16, np.int32, np.int64, np.uint8)
 
@@ -87,6 +90,25 @@ def event_queue_from_numpy(eq, device) -> EventQueue:
 
 def event_queue_to_numpy(eq: EventQueue) -> dict:
     return {k: _numpy(v) for k, v in eq._asdict().items()}
+
+
+def wheel_queue_from_numpy(eq, device) -> WheelQueue:
+    f = _fields(eq, WheelQueue._fields)
+    return WheelQueue(**{k: _tensor(v, device) for k, v in f.items()})
+
+
+def wheel_queue_to_numpy(eq: WheelQueue) -> dict:
+    return {k: _numpy(v) for k, v in eq._asdict().items()}
+
+
+def horizon_from_numpy(horizon, device) -> torch.Tensor:
+    """The incremental horizon f64[N] the compact runner carries (round
+    carry slot 3 when ``run.incremental``)."""
+    return _tensor(np.asarray(horizon, np.float64), device)
+
+
+def horizon_to_numpy(horizon) -> np.ndarray:
+    return _numpy(horizon)
 
 
 def spike_record_from_numpy(rec, device) -> SpikeRecord:

@@ -10,4 +10,7 @@ Kernels (sources in ``repro_torch/csrc``, built by ``kernels/build.py``):
   hines       - K1 tree factor, K2 factored solve   (csrc/hines.cu)
   hh_rhs      - K4 fused HH rates + ionic current   (csrc/hh_rhs.cu)
   event_wheel - K5 fused horizon + runnable score   (csrc/horizon.cu)
+                K6 gather-id compaction, K7 compaction
+                + table-row gather                   (csrc/compact.cu)
+                K8 segment ranking                   (csrc/segment_rank.cu)
 """

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("hines", "hh_rhs", "horizon")
+SOURCES = ("hines", "hh_rhs", "horizon", "compact", "segment_rank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict = {}
 _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hh_rhs": 0,
-            "horizon_score": 0}
+            "horizon_score": 0, "compact_ids": 0, "compact_gather": 0,
+            "segment_rank": 0}
 
 
 def nvcc_path() -> str:

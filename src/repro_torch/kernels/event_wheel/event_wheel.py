@@ -1,10 +1,18 @@
-"""CUDA wrapper of the fused horizon + runnable score (K5).
+"""CUDA wrappers of the scheduler kernels.
 
-Replaces ``repro/kernels/event_wheel/event_wheel.py::horizon_score_pallas``
-together with the gather ``t_clock[pre_byk] + delay_byk`` that
-``repro.kernels.event_wheel.ops.fused_horizon_select`` runs before it: the
-kernel (``csrc/horizon.cu``) gathers the clocks of each neuron's K
-in-edges itself.
+* K5 ``horizon_score_cuda`` (``csrc/horizon.cu``) replaces
+  ``repro/kernels/event_wheel/event_wheel.py::horizon_score_pallas``
+  together with the gather ``t_clock[pre_byk] + delay_byk`` that
+  ``repro.kernels.event_wheel.ops.fused_horizon_select`` runs before it:
+  the kernel gathers the clocks of each neuron's K in-edges itself.
+* K6 ``compact_ids_cuda`` and K7 ``compact_gather_cuda``
+  (``csrc/compact.cu``) replace ``compact_ids_pallas`` and
+  ``compact_gather_pallas``.
+* K8 ``segment_rank_cuda`` (``csrc/segment_rank.cu``) replaces
+  ``segment_rank_pallas``.
+
+Each wrapper checks device, type, shape and contiguity, allocates its
+outputs, launches on the current stream and adds one to its launch count.
 """
 from __future__ import annotations
 
@@ -17,14 +25,32 @@ from repro_torch.kernels import build
 _I32, _P, _F64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 
 
-def _lib():
-    lib = build.load("horizon")
+_SIGNATURES = {
+    "horizon": {"horizon_score_launch": [_P, _P, _P, _I32, _I32, _F64, _F64,
+                                         _F64, _P, _P, _P]},
+    "compact": {"compact_ids_launch": [_P, _I32, _I32, _P, _P, _P],
+                "compact_gather_launch": [_P, _I32, _P, _I32, _I32, _I32, _P,
+                                          _P, _P, _P]},
+    "segment_rank": {"segment_rank_launch": [_P, _I32, _I32, _P, _P]},
+}
+
+
+def _lib(source: str = "horizon"):
+    lib = build.load(source)
     if not getattr(lib, "_typed", False):
-        lib.horizon_score_launch.argtypes = [_P, _P, _P, _I32, _I32, _F64,
-                                             _F64, _F64, _P, _P, _P]
-        lib.horizon_score_launch.restype = ctypes.c_int
+        for fn, argtypes in _SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def _check_mask(mask, cap: int):
+    if not mask.is_cuda or mask.dtype != torch.bool or mask.dim() != 1 \
+            or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous bool[N] CUDA tensor")
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
 
 
 def horizon_score_cuda(t_clock, pre_byk, delay_byk, *, t_end: float,
@@ -52,3 +78,60 @@ def horizon_score_cuda(t_clock, pre_byk, delay_byk, *, t_end: float,
     build.check(err, "horizon_score")
     build.count("horizon_score")
     return hor, score
+
+
+def compact_ids_cuda(mask, cap: int):
+    """mask bool[N] -> (ids i32[cap], count i32[]): the first ``cap`` set
+    lanes in index order, sentinel N, and the total set-lane count."""
+    _check_mask(mask, cap)
+    dev = mask.device
+    ids = torch.empty((cap,), dtype=torch.int32, device=dev)
+    cnt = torch.empty((), dtype=torch.int32, device=dev)
+    err = _lib("compact").compact_ids_launch(
+        build.ptr(mask), mask.shape[0], int(cap), build.ptr(ids),
+        build.ptr(cnt), build.stream_ptr(dev))
+    build.check(err, "compact_ids")
+    build.count("compact_ids")
+    return ids, cnt
+
+
+def compact_gather_cuda(mask, table, cap: int, fill: int):
+    """mask bool[N], table i32[N, MO] -> (ids i32[cap], rows i32[cap, MO],
+    count i32[]): ``compact_ids_cuda`` plus the table rows of the compacted
+    lanes, ``fill`` in empty slots."""
+    _check_mask(mask, cap)
+    dev = mask.device
+    n = mask.shape[0]
+    if table.dtype != torch.int32 or table.dim() != 2 \
+            or table.shape[0] != n or not table.is_contiguous() \
+            or table.device != dev:
+        raise ValueError("table must be a contiguous int32[N, MO] on the "
+                         "mask's device")
+    mo = table.shape[1]
+    ids = torch.empty((cap,), dtype=torch.int32, device=dev)
+    rows = torch.empty((cap, mo), dtype=torch.int32, device=dev)
+    cnt = torch.empty((), dtype=torch.int32, device=dev)
+    err = _lib("compact").compact_gather_launch(
+        build.ptr(mask), n, build.ptr(table), mo, int(cap), int(fill),
+        build.ptr(ids), build.ptr(rows), build.ptr(cnt),
+        build.stream_ptr(dev))
+    build.check(err, "compact_gather")
+    build.count("compact_gather")
+    return ids, rows, cnt
+
+
+def segment_rank_cuda(key, max_rank: int):
+    """key i32[E] -> rank i32[E]: earlier equal keys, clipped at max_rank."""
+    if not key.is_cuda or key.dtype != torch.int32 or key.dim() != 1 \
+            or not key.is_contiguous():
+        raise ValueError("key must be a contiguous int32[E] CUDA tensor")
+    if max_rank < 0:
+        raise ValueError(f"max_rank must be >= 0, got {max_rank}")
+    dev = key.device
+    rank = torch.empty_like(key)
+    err = _lib("segment_rank").segment_rank_launch(
+        build.ptr(key), key.shape[0], int(max_rank), build.ptr(rank),
+        build.stream_ptr(dev))
+    build.check(err, "segment_rank")
+    build.count("segment_rank")
+    return rank

@@ -1,8 +1,14 @@
-"""Fused horizon (K5) dispatch, the by-post layout and threshold selection.
+"""Scheduler-kernel dispatch (K5-K8), the by-post layout and threshold
+selection.  Counterpart of ``repro.kernels.event_wheel.ops``.
 
-Counterpart of ``repro.kernels.event_wheel.ops`` for the pieces the dense
-main path runs.  ``horizon_score`` launches the CUDA kernel for CUDA
-tensors and runs the plain version for CPU tensors -- no fallback.
+``horizon_score``, ``compact_ids``, ``compact_gather`` and
+``segment_rank`` launch the CUDA kernel for CUDA tensors and run the plain
+version for CPU tensors -- no fallback and no ``impl=`` knob.  The JAX
+wrappers' ``domain="batch"`` key remap and scatter-min ``impl`` are
+workarounds for running off the TPU; the pairwise ranking here needs
+neither (its cost does not depend on the number of keys).  Ranks of
+invalid events (key >= n_keys) follow the pairwise count, which may
+differ from JAX's scatter path; the wheel insert masks them out.
 """
 from __future__ import annotations
 
@@ -10,20 +16,58 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.event_wheel import ref
-from repro_torch.kernels.event_wheel.event_wheel import horizon_score_cuda
+from repro_torch.kernels.event_wheel.event_wheel import (compact_gather_cuda,
+                                                         compact_ids_cuda,
+                                                         horizon_score_cuda,
+                                                         segment_rank_cuda)
+
+
+def _on_cuda(x, what: str) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} kernel for device {x.device}")
 
 
 def horizon_score(t_clock, pre_byk, delay_byk, *, t_end: float,
                   horizon_cap: float, eps: float = 1e-12):
     """(horizon[N], score[N]) of the by-post in-edge layout, see ``ref``."""
-    if t_clock.device.type == "cuda":
+    if _on_cuda(t_clock, "horizon"):
         return horizon_score_cuda(t_clock, pre_byk, delay_byk, t_end=t_end,
                                   horizon_cap=horizon_cap, eps=eps)
-    if t_clock.device.type == "cpu":
-        return ref.horizon_gather_ref(t_clock, pre_byk, delay_byk,
-                                      t_end=t_end, horizon_cap=horizon_cap,
-                                      eps=eps)
-    raise ValueError(f"no horizon kernel for device {t_clock.device}")
+    return ref.horizon_gather_ref(t_clock, pre_byk, delay_byk, t_end=t_end,
+                                  horizon_cap=horizon_cap, eps=eps)
+
+
+def compact_ids(mask, cap: int):
+    """Compact a bool[N] mask into a gather-id list (K6): (ids i32[cap] --
+    the first ``cap`` set lanes in index order, sentinel N; count i32[] --
+    total set lanes, may exceed cap: the overflow rolls to a later
+    dispatch)."""
+    if _on_cuda(mask, "compact_ids"):
+        return compact_ids_cuda(mask, cap)
+    return ref.compact_ids_ref(mask, cap)
+
+
+def compact_gather(mask, table, cap: int, *, fill: int = None):
+    """``compact_ids`` plus the rows of a static i32[N, MO] table for the
+    compacted lanes (K7): (ids i32[cap], rows i32[cap, MO] with ``fill``
+    -- default N -- in empty slots, count i32[]).  The compact fan-out's
+    edge-id emitter (``table = exec_common.out_edge_table``)."""
+    if fill is None:
+        fill = mask.shape[0]
+    if _on_cuda(mask, "compact_gather"):
+        return compact_gather_cuda(mask, table, cap, fill)
+    return ref.compact_gather_ref(mask, table, cap, fill)
+
+
+def segment_rank(key, max_rank: int):
+    """Rank of each event within its key group, in event-index order,
+    clipped at ``max_rank`` (K8): the wheel's batch-insert slot ranking."""
+    if _on_cuda(key, "segment_rank"):
+        return segment_rank_cuda(key, max_rank)
+    return ref.segment_rank_ref(key, max_rank)
 
 
 def select_threshold(score, k, n_iters: int = 48):

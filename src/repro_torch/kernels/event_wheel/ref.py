@@ -1,7 +1,11 @@
-"""Plain PyTorch versions of the fused horizon/selection pieces."""
+"""Plain PyTorch versions of the scheduler kernels (K5 horizon, K6
+compaction, K7 compact-gather, K8 segment rank) and the sort-based
+earliest-K oracle."""
 from __future__ import annotations
 
 import torch
+
+RANK_ROWS = 2048
 
 
 def horizon_score_ref(cand, t_clock, *, t_end: float, horizon_cap: float,
@@ -26,3 +30,58 @@ def horizon_gather_ref(t_clock, pre_byk, delay_byk, *, t_end: float,
     return horizon_score_ref(cand, t_clock, t_end=t_end,
                              horizon_cap=horizon_cap, eps=eps)
 
+
+
+def select_earliest_ref(score, k: int):
+    """Sort-based earliest-K oracle (the dense scheduler path): select all
+    entries with score <= k-th smallest (ties included)."""
+    kth = torch.sort(score).values[min(k, score.shape[0]) - 1]
+    return torch.isfinite(score) & (score <= kth)
+
+
+def compact_ids_ref(mask, cap: int):
+    """Gather-id compaction (K6's plain version): cumsum ranks and one
+    scatter.  Returns (ids i32[cap] -- indices of the first ``cap`` set
+    lanes in index order, sentinel N for empty slots; count i32[] -- total
+    set lanes, may exceed cap).
+
+    Lanes that are unset or ranked past ``cap`` all go to the dump slot
+    ``cap`` of a ``cap + 1`` buffer, which is sliced off: every live slot
+    has exactly one writer, so the result is the same on every device."""
+    n = mask.shape[0]
+    msk = mask.to(torch.int32)
+    csum = torch.cumsum(msk, 0, dtype=torch.int32)
+    pos = csum - msk
+    slot = torch.where((msk == 1) & (pos < cap), pos, cap)
+    ids = torch.full((cap + 1,), n, dtype=torch.int32, device=mask.device)
+    ids.scatter_(0, slot.long(), torch.arange(n, dtype=torch.int32,
+                                              device=mask.device))
+    cnt = csum[-1] if n else torch.zeros((), dtype=torch.int32,
+                                         device=mask.device)
+    return ids[:cap], cnt
+
+
+def compact_gather_ref(mask, table, cap: int, fill: int):
+    """K7's plain version: ``compact_ids_ref`` and one row gather of the
+    static table.  Returns (ids i32[cap], rows i32[cap, MO] -- table[ids]
+    with ``fill`` in empty slots, count i32[])."""
+    n = mask.shape[0]
+    ids, cnt = compact_ids_ref(mask, cap)
+    rows = table[torch.clamp(ids, max=n - 1).long()]
+    rows = torch.where((ids < n)[:, None], rows, fill).to(torch.int32)
+    return ids, rows, cnt
+
+
+def segment_rank_ref(key, max_rank: int):
+    """K8's plain version: rank[j] = |{i < j : key[i] == key[j]}| clipped at
+    ``max_rank``, by pairwise comparison (in row blocks of RANK_ROWS to
+    bound the compare matrix at [RANK_ROWS, E])."""
+    E = key.shape[0]
+    idx = torch.arange(E, device=key.device)
+    rank = torch.empty((E,), dtype=torch.int32, device=key.device)
+    for j0 in range(0, E, RANK_ROWS):
+        j1 = min(E, j0 + RANK_ROWS)
+        same = key[j0:j1, None] == key[None, :j1]
+        earlier = idx[None, :j1] < idx[j0:j1, None]
+        rank[j0:j1] = torch.clamp((same & earlier).sum(dim=1), max=max_rank)
+    return rank

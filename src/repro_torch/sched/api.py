@@ -1,16 +1,20 @@
-"""Queue-implementation dispatch: the ``queue=`` knob (dense only).
+"""Queue-implementation dispatch: the ``queue="dense"|"wheel"`` knob.
 
 Every execution model builds a ``QueueOps`` and goes through it for all
-queue traffic, as in ``repro.sched.api``.
+queue traffic, as in ``repro.sched.api``, so the dense queue and the
+bucketed event wheel stay interchangeable.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.sched import wheel as wh
+from repro_torch.sched.wheel import WheelQueue, WheelSpec
 
 
 class QueueOps(NamedTuple):
@@ -33,7 +37,8 @@ def _dense_insert_grouped(eq, t_ev, w_ampa, w_gaba, valid):
                      w_gaba.reshape(-1), valid.reshape(-1))
 
 
-def get_queue_ops(queue: str = "dense", *, ev_cap: int = 64) -> QueueOps:
+def get_queue_ops(queue: str = "dense", *, ev_cap: int = 64,
+                  wheel: WheelSpec = WheelSpec()) -> QueueOps:
     if queue == "dense":
         return QueueOps(
             name="dense", capacity=ev_cap,
@@ -46,10 +51,35 @@ def get_queue_ops(queue: str = "dense", *, ev_cap: int = 64) -> QueueOps:
             wrap=ev.EventQueue,
         )
     if queue == "wheel":
-        raise NotImplementedError(
-            "queue='wheel' (event wheel, kernels K6-K8) comes in a later "
-            "slice of the port (ROADMAP queue 1, item 7)")
+        # the generic insert doubles as the batch insert: its ranking
+        # (K8) is pairwise over the batch, whatever the number of keys
+        ins = functools.partial(wh.insert, wheel)
+        return QueueOps(
+            name="wheel", capacity=wheel.capacity,
+            make=lambda n, device: wh.make_wheel(n, wheel, device),
+            insert=ins,
+            insert_grouped=functools.partial(wh.insert_grouped, wheel),
+            insert_batch=ins,
+            next_time=wh.next_time,
+            deliver_until=wh.deliver_until,
+            wrap=WheelQueue,
+        )
     raise ValueError(f"unknown queue implementation {queue!r}")
+
+
+def gather_rows(eq, ids):
+    """Queue rows (t, w_ampa, w_gaba) of a compacted id list, ``ids``
+    clipped to [0, N).  Both queues share the [N, Q] flat slot layout, so
+    one gather serves either."""
+    return eq.t[ids], eq.w_ampa[ids], eq.w_gaba[ids]
+
+
+def scatter_rows(eq, ids, t_rows):
+    """Write advanced delivery-time rows back; sentinel ids (>= N) are
+    dropped.  The advance consumes events by setting their times to +inf
+    and never touches the weights, so only ``t`` is written."""
+    from repro_torch.core import exec_common as xc
+    return eq._replace(t=xc.scatter_at(eq.t, ids, t_rows))
 
 
 def grouped_k(net):

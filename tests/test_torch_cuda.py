@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+card against the CPU, on a card.
 
 Needs no JAX (the card's machine has none); every test skips without a
 CUDA device.  Run there with ``PYTHONPATH=src python -m pytest
@@ -12,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import sched
 from repro_torch.core import morphology, network
 from repro_torch.core.cell import CellModel
 from repro_torch.core.exec_fap import make_fap_vardt_runner
 from repro_torch.core.hines import hines_assemble
 from repro_torch.kernels import build
 from repro_torch.kernels.event_wheel import ops as ew_ops
+from repro_torch.kernels.event_wheel import ref as ew_ref
 from repro_torch.kernels.hh_rhs import ops as hh_ops
 from repro_torch.kernels.hh_rhs import ref as hh_ref
 from repro_torch.kernels.hines import ops as h_ops
@@ -68,7 +71,9 @@ def test_kernels_bitwise_equal_to_plain(dev, name):
                                          horizon_cap=2.0)):
         _eq(a, r)
     assert build.launches() == {"hines_factor": 1, "hines_solve_factored": 1,
-                                "hh_rhs": 1, "horizon_score": 1}
+                                "hh_rhs": 1, "horizon_score": 1,
+                                "compact_ids": 0, "compact_gather": 0,
+                                "segment_rank": 0}
 
 
 @pytest.mark.cuda
@@ -87,3 +92,71 @@ def test_main_path_card_equals_cpu(dev):
     _eq(a.rec.times, b.rec.times)
     _eq(a.y_final, b.y_final)
     assert int(a.n_steps) == int(b.n_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 256, 700, 16384])
+def test_compaction_kernels_bitwise_equal_to_plain(dev, n):
+    """K6 and K7 against their plain versions: empty, sparse, half and
+    full masks, caps below and above N."""
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.integers(0, 10**6, (n, 9)).astype(np.int32))
+    build.reset_launches()
+    calls = 0
+    for cap in (1, 16, 256, 1000):
+        for frac in (0.0, 0.01, 0.5, 1.0):
+            m = torch.from_numpy(rng.random(n) < frac)
+            ids, cnt = ew_ops.compact_ids(m.to(dev), cap)
+            r_ids, r_cnt = ew_ref.compact_ids_ref(m, cap)
+            _eq(ids, r_ids)
+            assert int(cnt) == int(r_cnt)
+            for a, r in zip(ew_ops.compact_gather(m.to(dev), table.to(dev),
+                                                  cap, fill=-3),
+                            ew_ref.compact_gather_ref(m, table, cap, -3)):
+                _eq(a, r)
+            calls += 1
+    torch.cuda.synchronize()
+    launched = build.launches()
+    assert launched["compact_ids"] == launched["compact_gather"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 255, 257, 4000, 18000])
+def test_segment_rank_kernel_bitwise_equal_to_plain(dev, E):
+    rng = np.random.default_rng(E)
+    for n_keys, max_rank in ((3, 2), (50, 6), (E + 5, 17), (7, 0)):
+        key = torch.from_numpy(rng.integers(0, n_keys + 1, E)
+                               .astype(np.int32))
+        _eq(ew_ops.segment_rank(key.to(dev), max_rank),
+            ew_ref.segment_rank_ref(key, max_rank))
+
+
+@pytest.mark.cuda
+def test_active_path_card_equals_cpu_and_dense(dev):
+    """The active-set path (binding batch cap, small spike cap, wheel,
+    fused horizon) gives bitwise the same run on the card and the CPU;
+    on the card batch_cap=0 equals the dense path exactly."""
+    net = network.make_network(32, k_in=4, seed=3)
+    iinj = 0.3 * (1.0 + 0.2 * np.random.default_rng(1).random(32))
+    kw = dict(queue="wheel", wheel=sched.WheelSpec.auto(net),
+              horizon_impl="fused")
+
+    def go(d, **extra):
+        model = CellModel(morphology.ball_and_stick(), device=d)
+        return make_fap_vardt_runner(model, net, iinj, 6.0, device=d,
+                                     **kw, **extra)()
+
+    build.reset_launches()
+    act = dict(batch="compact", batch_cap=8, fanout="compact", spike_cap=4)
+    (a, ra), (b, rb) = go(dev, **act), go(torch.device("cpu"), **act)
+    assert all(v > 0 for v in build.launches().values())
+    assert ra == rb and int(a.rec.count.sum()) > 0
+    _eq(a.rec.times, b.rec.times)
+    _eq(a.y_final, b.y_final)
+    assert int(a.n_steps) == int(b.n_steps) and int(a.dropped) == 0
+    (c, rc), (d, rd) = go(dev, batch="compact", batch_cap=0,
+                          fanout="compact"), go(dev)
+    assert rc == rd
+    _eq(c.rec.times, d.rec.times)
+    _eq(c.y_final, d.y_final)
+    assert int(c.n_events) == int(d.n_events)

@@ -1,0 +1,136 @@
+"""Parity of the port's compaction, compact-gather and segment-rank plain
+versions (the functions kernels K6, K7 and K8 compute) against the JAX
+package, on the CPU.
+
+Inputs are made with numpy from a seed.  The JAX side runs as its own
+tests run it (``tests/test_active_set.py``, ``tests/test_event_wheel.py``):
+the jnp oracles of ``repro/kernels/event_wheel/ref.py`` and the Pallas
+kernels in interpret mode.  Every output is an integer, so every
+comparison is exact; segment ranks are compared on valid keys against
+JAX's scatter ranking, which ranks invalid ones differently.  The CUDA
+kernels are held to these plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+jax.config.update("jax_enable_x64", True)
+
+from repro.kernels.event_wheel import ops as jew_ops  # noqa: E402
+from repro.kernels.event_wheel import ref as jew_ref  # noqa: E402
+from repro.kernels.event_wheel.event_wheel import segment_rank_pallas  # noqa: E402
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.event_wheel import ops as tew_ops  # noqa: E402
+from repro_torch.kernels.event_wheel import ref as tew_ref  # noqa: E402
+
+FRACS = (0.0, 0.1, 0.5, 1.0)     # empty, sparse, half and full masks
+
+
+def _eq(port, ref):
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 700])
+@pytest.mark.parametrize("cap", [1, 16, 256, 1000])
+def test_compact_ids_plain_matches_jax(n, cap):
+    rng = np.random.default_rng(n * 7 + cap)
+    for frac in FRACS:
+        m = rng.random(n) < frac
+        ids, cnt = tew_ops.compact_ids(torch.from_numpy(m), cap)
+        assert ids.dtype == cnt.dtype == torch.int32 and ids.shape == (cap,)
+        ja, ca = jew_ref.compact_ids_ref(jnp.asarray(m), cap)
+        jb, cb = jew_ops.compact_ids(jnp.asarray(m), cap, impl="pallas")
+        _eq(ids, ja)
+        _eq(ids, jb)
+        assert int(cnt) == int(ca) == int(cb) == int(m.sum())
+        want = np.flatnonzero(m)[:cap]
+        assert np.array_equal(ids.numpy()[: len(want)], want)
+        assert (ids.numpy()[len(want):] == n).all()
+
+
+@pytest.mark.parametrize("n,mo", [(1, 3), (255, 5), (256, 4), (700, 9)])
+@pytest.mark.parametrize("cap", [1, 16, 300])
+def test_compact_gather_plain_matches_jax(n, mo, cap):
+    rng = np.random.default_rng(n + mo + cap)
+    table = rng.integers(0, 999, (n, mo)).astype(np.int32)
+    for frac in FRACS:
+        m = rng.random(n) < frac
+        ids, rows, cnt = tew_ops.compact_gather(
+            torch.from_numpy(m), torch.from_numpy(table), cap, fill=777)
+        ja, ra, ca = jew_ref.compact_gather_ref(jnp.asarray(m),
+                                                jnp.asarray(table), cap, 777)
+        jb, rb, cb = jew_ops.compact_gather(jnp.asarray(m),
+                                            jnp.asarray(table), cap,
+                                            fill=777, impl="pallas")
+        for port, a, b in ((ids, ja, jb), (rows, ra, rb)):
+            _eq(port, a)
+            _eq(port, b)
+        assert rows.dtype == torch.int32 and rows.shape == (cap, mo)
+        assert int(cnt) == int(ca) == int(cb) == int(m.sum())
+
+
+def test_compact_gather_default_fill_is_n():
+    m = torch.tensor([False, True, False])
+    ids, rows, cnt = tew_ops.compact_gather(
+        m, torch.arange(6, dtype=torch.int32).reshape(3, 2), 3)
+    assert ids.tolist() == [1, 3, 3] and int(cnt) == 1
+    assert rows.tolist() == [[2, 3], [3, 3], [3, 3]]
+
+
+@pytest.mark.parametrize("E,n_keys,max_rank", [(1, 4, 3), (37, 12, 4),
+                                               (255, 3, 17), (256, 50, 6),
+                                               (700, 7, 3), (600, 600, 0)])
+def test_segment_rank_plain_matches_jax(E, n_keys, max_rank):
+    rng = np.random.default_rng(E + n_keys)
+    key = rng.integers(0, n_keys + 1, E).astype(np.int32)   # n_keys: invalid
+    rank = tew_ops.segment_rank(torch.from_numpy(key), max_rank)
+    assert rank.dtype == torch.int32 and rank.shape == (E,)
+    _eq(rank, jew_ref.segment_rank_ref(jnp.asarray(key), max_rank))
+    # the pairwise Pallas kernel ranks every event the same way
+    be = 128
+    pad = (-E) % be
+    kp = np.concatenate([key, np.full(pad, n_keys + 1, np.int32)])
+    pal = segment_rank_pallas(jnp.asarray(kp), max_rank=max_rank, block_e=be,
+                              interpret=True)[:E]
+    _eq(rank, pal)
+    # JAX's scatter ranking agrees on valid keys
+    valid = key < n_keys
+    sc = np.asarray(jew_ops.segment_rank(jnp.asarray(key), n_keys, max_rank,
+                                         impl="scatter"))
+    np.testing.assert_array_equal(rank.numpy()[valid], sc[valid])
+
+
+def test_segment_rank_counts_earlier_equal_keys():
+    key = torch.tensor([5, 5, 2, 5, 2, 5, 5], dtype=torch.int32)
+    assert tew_ops.segment_rank(key, 3).tolist() == [0, 1, 0, 2, 1, 3, 3]
+
+
+@pytest.mark.parametrize("k", [1, 5, 40, 64, 100])
+def test_select_threshold_matches_select_earliest(k):
+    rng = np.random.default_rng(k)
+    score = rng.uniform(0.0, 5.0, 64)
+    score[rng.random(64) < 0.3] = np.inf
+    score[3] = score[7]                                      # a tie
+    s = torch.from_numpy(score)
+    tau = tew_ops.select_threshold(s, k)
+    sel = torch.isfinite(s) & (s <= tau)
+    want = tew_ref.select_earliest_ref(s, k)
+    assert torch.equal(sel, want)
+    _eq(want, jew_ref.select_earliest_ref(jnp.asarray(score), k))
+    assert float(tau) == float(jew_ops.select_threshold(jnp.asarray(score),
+                                                         k))
+
+
+def test_plain_versions_launch_nothing():
+    """CPU tensors take the plain versions: no kernel is launched."""
+    build.reset_launches()
+    m = torch.ones(10, dtype=torch.bool)
+    tew_ops.compact_ids(m, 4)
+    tew_ops.compact_gather(m, torch.zeros((10, 2), dtype=torch.int32), 4)
+    tew_ops.segment_rank(torch.zeros(9, dtype=torch.int32), 2)
+    assert all(v == 0 for v in build.launches().values())

@@ -56,6 +56,7 @@ def test_dispatchers_have_no_fallback_path():
 HOST_NUMPY = {"morphology.py", "topology.py", "network.py", "detmath.py"}
 CORE_FILES = [p for p in sorted((ROOT / "src" / "repro_torch" / "core")
                                 .glob("*.py")) if p.name not in HOST_NUMPY] \
+    + sorted((ROOT / "src" / "repro_torch" / "sched").glob("*.py")) \
     + sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ref.py"))
 DEVICE_DEPENDENT = {"exp", "expm1", "log", "pow", "sqrt", "mean", "sum"}
 
@@ -119,6 +120,10 @@ def _boom(*_a, **_k):
     (ew_ops, "horizon_score_cuda",
      lambda x: ew_ops.horizon_score(x, None, None, t_end=1.0,
                                     horizon_cap=1.0)),
+    (ew_ops, "compact_ids_cuda", lambda x: ew_ops.compact_ids(x, 4)),
+    (ew_ops, "compact_gather_cuda",
+     lambda x: ew_ops.compact_gather(x, None, 4, fill=0)),
+    (ew_ops, "segment_rank_cuda", lambda x: ew_ops.segment_rank(x, 4)),
 ])
 def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
     monkeypatch.setattr(mod, cuda_fn, _boom)
@@ -128,7 +133,9 @@ def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
 
 def test_cuda_wrappers_reject_cpu_tensors():
     """The CUDA wrappers themselves refuse host tensors before launching."""
-    from repro_torch.kernels.event_wheel.event_wheel import horizon_score_cuda
+    from repro_torch.kernels.event_wheel.event_wheel import (
+        compact_gather_cuda, compact_ids_cuda, horizon_score_cuda,
+        segment_rank_cuda)
     from repro_torch.kernels.hh_rhs.hh_rhs import hh_rhs_cuda
     from repro_torch.kernels.hines.hines import hines_factor_cuda
     x = torch.zeros((3, 4), dtype=torch.float64)
@@ -142,6 +149,13 @@ def test_cuda_wrappers_reject_cpu_tensors():
                            torch.zeros((2, 4), dtype=torch.int32),
                            torch.zeros((2, 4), dtype=torch.float64),
                            t_end=1.0, horizon_cap=1.0)
+    mask = torch.zeros(4, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        compact_ids_cuda(mask, 2)
+    with pytest.raises(ValueError):
+        compact_gather_cuda(mask, torch.zeros((4, 2), dtype=torch.int32), 2, 0)
+    with pytest.raises(ValueError):
+        segment_rank_cuda(torch.zeros(4, dtype=torch.int32), 2)
 
 
 def test_other_devices_are_refused():
@@ -150,3 +164,8 @@ def test_other_devices_are_refused():
         hh_ops.hh_rhs(x[0], x, x, x, x)
     with pytest.raises(ValueError):
         hines_ops.hines_factor(None, None, x)
+    m = torch.zeros(3, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        ew_ops.compact_ids(m, 2)
+    with pytest.raises(ValueError):
+        ew_ops.segment_rank(m.to(torch.int32), 2)
