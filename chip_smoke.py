@@ -29,7 +29,20 @@ Phases, each reported on its own lines:
   7. the active path at N=64 with a binding batch cap and a small spike cap
      (roll-over and dense fan-out fallback both run): card and CPU bitwise
      equal; on the card ``batch_cap=0`` equals the dense path exactly;
-  8. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
+  8. the fused Hines solve K3 against its plain version and against
+     K2(K1(d), b), bitwise, at N=16384 on the branched cell (C=13) and the
+     ball-and-stick cell (C=11), with its timing, its bound and the dense
+     ``torch.linalg.solve`` on the same systems beside it;
+  9. the paper's baseline method 2a at full width: ``make_bsp_fixed_runner(
+     method="derivimplicit")`` on phase 3's cell, network, currents and
+     t_end -- K3 once per step -- reported beside phase 3's 2c run;
+ 10. the other baselines: 1a BSP-fixed equals 1c FAP-fixed (full width,
+     10 ms); 2b BSP-vardt dense equals compact with a cap below the
+     frontier (N=4096, 5 ms); 2c under ``jac_policy="iteration"`` (full
+     width, 5 ms: nsetups == nni, K3 launched, K1/K2 not);
+ 11. 2a and 2c-iteration at N=64 on the card and on the CPU: spike trains,
+     steps and final states bitwise equal;
+ 12. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path (device busy
      share, busiest kernels).
 
@@ -68,6 +81,7 @@ SRC = "src/repro_torch/csrc"
 REPLACES = {
     "hines_factor": "src/repro/kernels/hines/hines.py:163",
     "hines_solve_factored": "src/repro/kernels/hines/hines.py:188",
+    "hines_solve": "src/repro/kernels/hines/hines.py:73",
     "hh_rhs": "src/repro/kernels/hh_rhs/hh_rhs.py:46",
     "horizon_score": "src/repro/kernels/event_wheel/event_wheel.py:38",
     "compact_ids": "src/repro/kernels/event_wheel/event_wheel.py:115",
@@ -76,15 +90,19 @@ REPLACES = {
 }
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
+          "hines_solve": f"{SRC}/hines.cu",
           "hh_rhs": f"{SRC}/hh_rhs.cu", "horizon_score": f"{SRC}/horizon.cu",
           "compact_ids": f"{SRC}/compact.cu",
           "compact_gather": f"{SRC}/compact.cu",
           "segment_rank": f"{SRC}/segment_rank.cu"}
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
+               "hines_solve_kernel",
                "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
                "compact_gather_kernel", "segment_rank_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
+ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
+BASELINE_PATH = ("hines_solve",)
 ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
               spike_cap="auto", queue="wheel")
 
@@ -393,7 +411,7 @@ def phase_active(dev, t_end, dense):
                              f" record overflow {int(res.rec.overflow)}")
     if spikes <= 0:
         raise AssertionError("active path produced no spikes")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in ACTIVE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"active path never launched {missing}")
     n_keys = N_MAIN * spec.n_buckets
@@ -581,6 +599,230 @@ def phase_active_card_vs_cpu(dev, n=64, t_end=10.0, batch_cap=16,
         raise AssertionError("batch_cap=0 differs from the dense path")
 
 
+# ---------------------------------------------------------------- phase 8 --
+def phase_fused_solve(dev):
+    """K3 bitwise against its plain version and against K2(K1(d), b) at
+    the baseline path's shapes, timed beside the plain version and the
+    dense ``torch.linalg.solve`` on the same systems."""
+    from repro_torch.core.hines import dense_tree_matrix
+    from repro_torch.core.morphology import ball_and_stick, branched_tree
+    from repro_torch.kernels.hines import ops as h_ops
+    from repro_torch.kernels.hines import ref as h_ref
+    N, row = N_MAIN, None
+    for morph in (branched_tree(depth=2, seg_per_branch=2), ball_and_stick()):
+        model, d, _, b = _hines_case(morph, dev, N)
+        C, p = model.C, model.params
+        dT, bT = d.T, b.T                   # the cell's [N, C] rows, as views
+        x = h_ops.hines_solve(p.parent, p.g_axial, dT, bT)
+        check_close(f"hines_solve C={C} vs plain", x,
+                    h_ref.hines_solve_ref(p.parent, p.g_axial, dT, bT),
+                    exact=True)
+        check_close(f"hines_solve C={C} vs K2(K1)", x,
+                    h_ops.hines_solve_factored(
+                        p.parent, p.g_axial,
+                        h_ops.hines_factor(p.parent, p.g_axial, dT), bT),
+                    exact=True)
+        dense = dense_tree_matrix(p.parent, p.g_axial,
+                                  d - p.g_axial - model._contrib)
+        rhs = b[..., None]
+        xl = torch.linalg.solve(dense, rhs)[..., 0]
+        err = float((xl - x.T).abs().max())
+        t3 = cuda_ms(lambda: h_ops.hines_solve(p.parent, p.g_axial, dT, bT))
+        t3p = cuda_ms(lambda: h_ref.hines_solve_ref(p.parent, p.g_axial, dT,
+                                                    bT))
+        t3l = cuda_ms(lambda: torch.linalg.solve(dense, rhs))
+        say("fused-solve", f"C={C} N={N}: hines_solve {t3:.4f} ms (plain "
+            f"{t3p:.4f}, torch.linalg.solve on the dense [N, C, C] systems "
+            f"{t3l:.4f}); bitwise equal to the plain version and to "
+            f"K2(K1(d), b); dense solve differs by {err:.2e}")
+        if C == 13:
+            ne = N * C
+            row = (0.0, t3, t3p, *bound_ms(24 * ne + 12 * C,
+                                           (8 * (C - 1) + 1) * N), t3l)
+    return {"hines_solve": row}
+
+
+# ---------------------------------------------------------------- phase 9 --
+def _baseline_model_net(dev, n):
+    from repro_torch.core.cell import CellModel
+    from repro_torch.core.morphology import branched_tree
+    from repro_torch.core.network import make_network
+    return (CellModel(branched_tree(depth=2, seg_per_branch=2), device=dev),
+            make_network(n, k_in=K_IN, seed=NET_SEED))
+
+
+def _gate_run(name, res):
+    spikes = int(res.rec.count.sum())
+    if bool(res.failed):
+        raise AssertionError(f"{name}: an integrator failed")
+    if int(res.dropped) != 0 or int(res.rec.overflow) != 0:
+        raise AssertionError(f"{name}: dropped {int(res.dropped)} events, "
+                             f"record overflow {int(res.rec.overflow)}")
+    if spikes <= 0:
+        raise AssertionError(f"{name}: no spikes")
+    return spikes
+
+
+def phase_baseline(dev, t_end, main):
+    """Method 2a (BSP fixed-step, derivimplicit) at full width, counts
+    zeroed just before; reported beside phase 3's 2c run."""
+    from repro_torch.core.exec_bsp import make_bsp_fixed_runner
+    from repro_torch.kernels import build
+    model, net = _baseline_model_net(dev, N_MAIN)
+    run = make_bsp_fixed_runner(model, net, regime_currents(N_MAIN), t_end,
+                                method="derivimplicit", device=dev)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    spikes = _gate_run("2a", res)
+    steps = run.n_windows * run.steps_per_window
+    say("baseline", f"2a (BSP fixed, derivimplicit, dt 0.025 ms) N={N_MAIN} "
+        f"C=13 k_in={K_IN} t_end={t_end} ms: {run.n_windows} windows x "
+        f"{run.steps_per_window} steps, n_steps {int(res.n_steps)} "
+        f"({steps} per neuron), n_events {int(res.n_events)}, spikes "
+        f"{spikes}, dropped {int(res.dropped)}, failed {bool(res.failed)}")
+    say("baseline", f"2a wall {wall:.2f} s, {wall / t_end:.3f} s per "
+        f"simulated ms, {wall / run.n_windows * 1e3:.1f} ms per window; "
+        f"launches {json.dumps(launches)}")
+    say("baseline", f"2a vs 2c (phase 3, same cell, network, currents, "
+        f"t_end): steps {int(res.n_steps)} vs {main['n_steps']} (ratio "
+        f"{int(res.n_steps) / main['n_steps']:.3f}), wall {wall:.2f} vs "
+        f"{main['wall_s']:.2f} s (ratio {wall / main['wall_s']:.3f}), "
+        f"spikes {spikes} vs {main['spikes']}")
+    if launches["hines_solve"] != steps:
+        raise AssertionError(f"2a launched K3 {launches['hines_solve']} "
+                             f"times for {steps} steps")
+    return launches, dict(wall_s=wall, n_steps=int(res.n_steps),
+                          steps_per_neuron=steps, windows=run.n_windows,
+                          n_events=int(res.n_events), spikes=spikes)
+
+
+# --------------------------------------------------------------- phase 10 --
+def phase_other_baselines(dev, n_2b=4096, t_fixed=10.0, t_vardt=5.0):
+    from repro_torch.core.bdf import BDFOptions
+    from repro_torch.core.exec_bsp import run_bsp_fixed, run_bsp_vardt
+    from repro_torch.core.exec_fap import (make_fap_fixed_runner,
+                                           make_fap_vardt_runner)
+    from repro_torch.kernels import build
+    out = {}
+    model, net = _baseline_model_net(dev, N_MAIN)
+    cur = regime_currents(N_MAIN)
+    t0 = time.perf_counter()
+    r1a = run_bsp_fixed(model, net, cur, t_fixed, method="cnexp", device=dev)
+    t1 = time.perf_counter()
+    r1c, rounds = make_fap_fixed_runner(model, net, cur, t_fixed,
+                                        method="cnexp", device=dev)()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for name, r in (("1a", r1a), ("1c", r1c)):
+        _gate_run(name, r)
+    fin = torch.isfinite(r1a.rec.times)
+    dts = float((r1a.rec.times[fin] - r1c.rec.times[fin]).abs().max())
+    dyn = (r1a.y_final - r1c.y_final).abs().amax(dim=1)
+    dy, n_dy = float(dyn.max()), int((dyn > 0).sum())
+    same = torch.equal(r1a.rec.count, r1c.rec.count) \
+        and torch.equal(fin, torch.isfinite(r1c.rec.times)) \
+        and int(r1a.n_events) == int(r1c.n_events) \
+        and int(r1a.n_steps) == int(r1c.n_steps)
+    say("baselines", f"1a BSP-fixed vs 1c FAP-fixed (cnexp) N={N_MAIN} "
+        f"t_end={t_fixed} ms: spikes {int(r1a.rec.count.sum())} vs "
+        f"{int(r1c.rec.count.sum())}, n_events {int(r1a.n_events)} vs "
+        f"{int(r1c.n_events)}, 1c rounds {rounds}; spike counts, record "
+        f"slots, events and steps equal: {same}; spike times within "
+        f"{dts:.2e} ms; final states within {dy:.2e} ({n_dy} neurons "
+        f"differ: the queues sum a "
+        f"step's weights in slot order, and the two runners fill slots at "
+        f"other times); wall {t1 - t0:.2f} vs {t2 - t1:.2f} s")
+    if not same or dts > 1e-9:
+        raise AssertionError("1a BSP-fixed differs from 1c FAP-fixed")
+    out["1a_1c"] = dict(n=N_MAIN, t_end=t_fixed, rounds=rounds,
+                        wall_1a_s=t1 - t0, wall_1c_s=t2 - t1,
+                        spikes=int(r1a.rec.count.sum()))
+
+    model_b, net_b = _baseline_model_net(dev, n_2b)
+    cur_b = regime_currents(n_2b)
+    cap = n_2b // 4
+    t0 = time.perf_counter()
+    rd = run_bsp_vardt(model_b, net_b, cur_b, t_vardt, device=dev)
+    t1 = time.perf_counter()
+    rc = run_bsp_vardt(model_b, net_b, cur_b, t_vardt, batch="compact",
+                       batch_cap=cap, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _gate_run("2b dense", rd)
+    _gate_run("2b compact", rc)
+    same = _same_run(rd, rc) and int(rd.n_resets) == int(rc.n_resets)
+    say("baselines", f"2b BSP-vardt N={n_2b} t_end={t_vardt} ms: dense vs "
+        f"compact batch_cap={cap} (frontier {int(rc.sched.runnable)} lanes "
+        f"over {int(rd.sched.rounds)} windows, {int(rc.sched.rounds)} "
+        f"chunks): n_steps {int(rd.n_steps)} vs {int(rc.n_steps)}, spikes "
+        f"{int(rd.rec.count.sum())}, identical event for event: {same}; "
+        f"wall {t1 - t0:.2f} vs {t2 - t1:.2f} s")
+    if not same or int(rc.sched.rounds) <= int(rd.sched.rounds):
+        raise AssertionError("2b compact differs from dense, or its cap "
+                             "did not bind")
+    out["2b"] = dict(n=n_2b, t_end=t_vardt, batch_cap=cap,
+                     n_steps=int(rd.n_steps), wall_dense_s=t1 - t0,
+                     wall_compact_s=t2 - t1)
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    ri, rounds = make_fap_vardt_runner(
+        model, net, cur, t_vardt, opts=BDFOptions(jac_policy="iteration"),
+        horizon_impl="fused", device=dev)()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    _gate_run("2c-iteration", ri)
+    solver = {k: int(v) for k, v in ri.solver.items()}
+    say("baselines", f"2c jac_policy=iteration N={N_MAIN} t_end={t_vardt} "
+        f"ms: rounds {rounds}, n_steps {int(ri.n_steps)}, spikes "
+        f"{int(ri.rec.count.sum())}, solver {json.dumps(solver)}; wall "
+        f"{wall:.2f} s; launches {json.dumps(launches)}")
+    if solver["nsetups"] != solver["nni"] or launches["hines_solve"] <= 0 \
+            or launches["hines_factor"] or launches["hines_solve_factored"]:
+        raise AssertionError("2c-iteration: nsetups != nni, or K3 not "
+                             "launched, or K1/K2 launched")
+    out["2c_iteration"] = dict(n=N_MAIN, t_end=t_vardt, rounds=rounds,
+                               wall_s=wall, solver=solver,
+                               launches=launches)
+    return out
+
+
+# --------------------------------------------------------------- phase 11 --
+def phase_baselines_card_vs_cpu(dev, n=64, t_end=10.0):
+    from repro_torch.core.bdf import BDFOptions
+    from repro_torch.core.exec_bsp import run_bsp_fixed
+    from repro_torch.core.exec_fap import make_fap_vardt_runner
+    t0 = time.perf_counter()
+    cur = regime_currents(n)
+    for name in ("2a", "2c-iteration"):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            model, net = _baseline_model_net(d, n)
+            if name == "2a":
+                res.append(run_bsp_fixed(model, net, cur, t_end,
+                                         method="derivimplicit", device=d))
+            else:
+                res.append(make_fap_vardt_runner(
+                    model, net, cur, t_end,
+                    opts=BDFOptions(jac_policy="iteration"),
+                    horizon_impl="fused", device=d)()[0])
+        g, c = res
+        same = _same_run(g, c)
+        say("baselines-card-vs-cpu", f"{name} N={n} C=13 t_end={t_end} ms: "
+            f"spikes {int(g.rec.count.sum())}, n_steps card "
+            f"{int(g.n_steps)} cpu {int(c.n_steps)}; spike trains, steps and "
+            f"final states bitwise equal: {same} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not same or int(c.rec.count.sum()) == 0:
+            raise AssertionError(f"{name} differs card vs CPU")
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -641,13 +883,18 @@ def main(argv=None):
     rows.update(phase_sched_kernels(dev, act))
     phase_card_vs_cpu(dev)
     phase_active_card_vs_cpu(dev)
+    rows.update(phase_fused_solve(dev))
+    base_launches, base = phase_baseline(dev, args.t_end, main_stats)
+    others = phase_other_baselines(dev)
+    phase_baselines_card_vs_cpu(dev)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
                       wheel="auto", **dict(ACTIVE, batch_cap=act["batch_cap"],
                                            spike_cap=act["spike_cap"]))
-    launches.update({k: act_launches[k] for k in REPLACES
+    launches.update({k: act_launches[k] for k in ACTIVE_PATH
                      if k not in DENSE_PATH})
+    launches.update({k: base_launches[k] for k in BASELINE_PATH})
     kernels = [{"name": k, "route": "cuda", "source": SOURCE[k],
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": rows[k][0], "ms": rows[k][1],
@@ -663,7 +910,9 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"gpu": smi, "kernels": kernels, "main": main_stats,
-             "active": act, "active_launches": act_launches}, indent=1))
+             "active": act, "active_launches": act_launches,
+             "baseline_2a": base, "baseline_2a_launches": base_launches,
+             "other_baselines": others}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

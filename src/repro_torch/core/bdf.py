@@ -4,8 +4,9 @@ The port of ``repro.core.bdf``: the fixed-leading-coefficient BDF(1..5) of
 CVODE in Nordsieck form with a modified-Newton corrector on the
 Hines-structured Newton matrix, the WRMS local error test, order selection,
 tstop semantics, IVP resets on synaptic events, the CVODE Jacobian-freshness
-policy (``jac_policy="reuse"``) and the NDF error constants
-(``method="ndf"``).
+policy (``jac_policy="reuse"``) or a fresh assembly and fused Hines solve
+on every Newton iteration (``jac_policy="iteration"``), and the NDF error
+constants (``method="ndf"``).
 
 The JAX module is written per neuron and vmapped, so every ``lax.cond`` and
 ``while_loop`` of ``_step_impl`` runs per lane.  Here every state field has
@@ -98,7 +99,8 @@ class BDFOptions(NamedTuple):
     h0: float = -1.0          # <=0: use heuristic
     precond: str = "neuron"   # "neuron" (paper default); "schur" not ported
     method: str = "bdf"       # "bdf" | "ndf" (kappa-modified error constants)
-    jac_policy: str = "reuse" # "reuse"; "iteration" not ported
+    jac_policy: str = "reuse" # "reuse" | "iteration" (fused rebuild per
+    #                           Newton iteration, nsetups == nni)
 
 
 # --------------------------------------------------------------------------
@@ -142,9 +144,6 @@ def _check_opts(opts: BDFOptions):
         raise ValueError(f"unknown method {opts.method!r}")
     if opts.jac_policy not in ("reuse", "iteration"):
         raise ValueError(f"unknown jac_policy {opts.jac_policy!r}")
-    if opts.jac_policy == "iteration":
-        raise NotImplementedError(
-            f"jac_policy='iteration' (fused Hines solve, kernel K3) {_LATER}")
     if opts.precond != "neuron":
         raise NotImplementedError(f"precond={opts.precond!r} {_LATER}")
 
@@ -388,6 +387,7 @@ def _step_impl(model, st: BDFState, t_limit, iinj, opts: BDFOptions,
     order-1 reset from ``f_first``.
     """
     _check_opts(opts)
+    reuse = opts.jac_policy == "reuse"
     dtype, dev = st.zn.dtype, st.zn.device
     L = st.t.shape[0]
     y_ref = st.zn[:, 0]
@@ -419,22 +419,25 @@ def _step_impl(model, st: BDFState, t_limit, iinj, opts: BDFOptions,
         zdot_term = zn_pred[:, 1] / l[:, 1:2]          # gamma * ydot_pred
 
         # ---- Jacobian freshness (cvNlsNewton's callSetup decision) ---------
-        gamrat = gamma / st.gamma_saved
-        need = st.jbad | ((st.nst - st.nstlp) >= MSBP) \
-            | (torch.abs(gamrat - 1.0) > DGMAX)
-        factors = st.factors
-        if bool((need & live).any()):
-            factors = torch.where(need[:, None],
-                                  model.newton_setup(ypred, gamma,
-                                                     mode=opts.precond),
-                                  factors)
-        st = st._replace(
-            factors=factors,
-            gamma_saved=torch.where(need, gamma, st.gamma_saved),
-            nstlp=torch.where(need, st.nst, st.nstlp),
-            nsetups=st.nsetups + need.to(torch.int32),
-            jbad=false)
-        jcur = need                              # factors current for this y?
+        if reuse:
+            gamrat = gamma / st.gamma_saved
+            need = st.jbad | ((st.nst - st.nstlp) >= MSBP) \
+                | (torch.abs(gamrat - 1.0) > DGMAX)
+            factors = st.factors
+            if bool((need & live).any()):
+                factors = torch.where(need[:, None],
+                                      model.newton_setup(ypred, gamma,
+                                                         mode=opts.precond),
+                                      factors)
+            st = st._replace(
+                factors=factors,
+                gamma_saved=torch.where(need, gamma, st.gamma_saved),
+                nstlp=torch.where(need, st.nst, st.nstlp),
+                nsetups=st.nsetups + need.to(torch.int32),
+                jbad=false)
+            jcur = need                          # factors current for this y?
+        else:
+            jcur = ~false                        # rebuilt every iteration
 
         # ---- modified Newton (cvNlsNewton) ---------------------------------
         y, acor = ypred, torch.zeros_like(ypred)
@@ -455,7 +458,11 @@ def _step_impl(model, st: BDFState, t_limit, iinj, opts: BDFOptions,
                 f = rhs(torch.where(deliver[:, None], y_ev, y))
             f_keep_n = torch.where((m == 0)[:, None], f, f_keep)
             G = acor + zdot_term - g_col * f
-            delta = model.newton_solve(st.factors, -G, mode=opts.precond)
+            if reuse:
+                delta = model.newton_solve(st.factors, -G, mode=opts.precond)
+            else:
+                delta = model.solve_newton_mat(y, gamma, -G,
+                                               mode=opts.precond)
             dnrm = wrms(delta, y_ref)
             crate_n = torch.where(
                 m > 0, torch.maximum(CRDOWN * crate,
@@ -479,7 +486,9 @@ def _step_impl(model, st: BDFState, t_limit, iinj, opts: BDFOptions,
             m = m + nlive.to(torch.int32)
         f_first = f_keep
         m_it = m
-        st = st._replace(nni=nni, nfe=nfe)
+        # under "iteration" every Newton iteration is one assembly + solve
+        nsetups = st.nsetups if reuse else st.nsetups + (nni - st.nni)
+        st = st._replace(nni=nni, nfe=nfe, nsetups=nsetups)
 
         acnrm = wrms(acor, y_ref)
         dsm = acnrm * tq2
@@ -493,7 +502,8 @@ def _step_impl(model, st: BDFState, t_limit, iinj, opts: BDFOptions,
         stale = ~conv & ~jcur
 
         force_ef = conv & ~accepted & (nef + 1 >= MAX_NEF)
-        force_cf = ~conv & jcur & (ncf + 1 >= MAX_NCF_RESTART)
+        # the q->1 restart of a convergence failure is the reuse policy's
+        force_cf = ~conv & jcur & (ncf + 1 >= MAX_NCF_RESTART) & reuse
         force_any = force_ef | force_cf
         if bool((force_any & live).any()):
             f_restart = torch.where(force_any[:, None], rhs(y_ref), 0.0)
@@ -501,8 +511,8 @@ def _step_impl(model, st: BDFState, t_limit, iinj, opts: BDFOptions,
             f_restart = torch.zeros_like(y_ref)
 
         # ---- outcomes -------------------------------------------------------
-        # convergence failure (reuse policy)
-        force = ~stale & (ncf + 1 >= MAX_NCF_RESTART)
+        # convergence failure (under "iteration" never stale, never forced)
+        force = ~stale & (ncf + 1 >= MAX_NCF_RESTART) & reuse
         eta = torch.where(stale, 1.0, ETACF).to(dtype)
         q_cf = torch.where(force, 1, st.q).to(torch.int32)
         zn_cf, h_cf = _rescale(st.zn, st.tau, st.h, q_cf, eta)

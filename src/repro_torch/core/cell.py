@@ -12,6 +12,9 @@ a batch (the JAX ``CellModel`` is written per neuron and vmapped).
                              HH rates and currents come from the fused
                              HH-RHS kernel (K4) on CUDA
   jac_terms(Y)               the Hines-structured approximation to df/dy
+  solve_newton_mat(Y, gamma, b)  assembles M = I - gamma*J~ and solves
+                             M x = b in one pass (the fused Hines solve
+                             kernel, K3)
   newton_setup(Y, gamma)     assembles + factors M = I - gamma*J~ (the
                              Hines factor kernel, K1); flat factor rows
   newton_solve(factors, b)   back-solves against stored factors (the
@@ -76,6 +79,21 @@ class CellModel:
                         for c, p in child_levels(morph.parent)]
         # each child's axial conductance on its parent's diagonal, [C]
         self._contrib = axial_contrib(morph.parent, self.params.g_axial)
+
+    def runner_device(self, device) -> torch.device:
+        """``resolve_device(device)``, which must be where the model lives
+        (every entry point built on a model calls this)."""
+        dev = resolve_device(device)
+        if self.device != dev:
+            raise ValueError(f"model lives on {self.device}, caller asks for "
+                             f"{dev}")
+        return dev
+
+    def assemble(self, diag):
+        """``hines_assemble``'s tree diagonal from the per-compartment terms
+        ``diag`` [N, C]: diag + g_axial + the children's axial conductances
+        (precomputed, ``_contrib``)."""
+        return diag + self.params.g_axial + self._contrib
 
     # ---- packing -------------------------------------------------------------
     def split(self, Y):
@@ -147,9 +165,25 @@ class CellModel:
                                 dtype=Y.dtype, device=Y.device)
         return g_tot, diag_gates, diag_syn, extra[:, :0]
 
-    def solve_newton_mat(self, y, gamma, b, mode: str = "neuron"):
-        raise NotImplementedError(
-            f"solve_newton_mat (the fused Hines solve, kernel K3) {_LATER}")
+    def solve_newton_mat(self, Y, gamma, b, mode: str = "neuron"):
+        """Solve (I - gamma*J~) x = b at (Y, gamma[N]) with one fused Hines
+        solve (kernel K3 on CUDA) and diagonal solves, assembling the
+        matrix anew (``jac_policy="iteration"``).  The operation order is
+        ``repro.core.cell.CellModel.solve_newton_mat``'s: ``(b*cap)/gamma``,
+        not ``newton_setup``'s ``b * (cap/gamma)``."""
+        if mode != "neuron":
+            raise NotImplementedError(f"precond={mode!r} {_LATER}")
+        C = self.C
+        g_tot, diag_gates, diag_syn, diag_extra = self.jac_terms(Y)
+        p = self.params
+        gam = gamma[:, None]
+        bv = b[:, :C] * p.cap / gam
+        d = self.assemble(p.cap / gam + g_tot)
+        xv = hines_ops.hines_solve(p.parent, p.g_axial, d.T, bv.T).T
+        rest_diag = torch.cat(
+            [diag_gates, diag_syn.expand(Y.shape[0], 2), diag_extra], dim=1)
+        xr = b[:, C:] / (1.0 - gam * rest_diag)
+        return torch.cat([xv, xr], dim=1)
 
     # ---- split setup/solve (factor reuse across Newton iterations) ---------------
     def n_factors(self, mode: str = "neuron") -> int:
@@ -169,8 +203,7 @@ class CellModel:
         p = self.params
         gam = gamma[:, None]
         vscale = p.cap / gam
-        diag_v = vscale + g_tot
-        d = diag_v + p.g_axial + self._contrib
+        d = self.assemble(vscale + g_tot)
         d_elim = hines_ops.hines_factor(p.parent, p.g_axial, d.T).T
         rest_diag = torch.cat(
             [diag_gates, diag_syn.expand(Y.shape[0], 2), diag_extra], dim=1)

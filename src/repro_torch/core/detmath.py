@@ -14,7 +14,9 @@ Plain PyTorch does not give that:
   reciprocal, on the CPU as a true division.
 
 This module supplies the replacements the neuron core uses: sums in one
-fixed pairwise order, and exp/expm1/log/pow/sqrt built from IEEE adds,
+fixed pairwise order, a fused multiply-add where the JAX reference's
+compiled code contracts one (``fma``), and exp/expm1/log/pow/sqrt built
+from IEEE adds,
 multiplies, divisions, rounding and bit moves only (Cody-Waite reduction
 plus Taylor polynomials in Horner form; Newton's iteration for sqrt).
 ``csrc/hh_rhs.cu`` repeats ``exp`` and ``expm1`` operation for operation
@@ -65,6 +67,32 @@ def fixed_sum(x):
 
 def fixed_mean(x):
     return fixed_sum(x) * (1.0 / x.shape[-1])
+
+
+SPLIT = 134217729.0                  # 2**27 + 1, Veltkamp's splitter
+
+
+def _split(a):
+    """a = hi + lo exactly, each half with at most 26 significant bits."""
+    c = SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def fma(a, b, c):
+    """a * b + c rounded once, as XLA's CPU backend computes a contracted
+    multiply-add: the product's exact error (Dekker's two-product) and the
+    sum's (two-sum) are added back before the final rounding.  Exact but
+    for double-rounding ties of the error terms (relative size 2**-106).
+    ``b`` and ``c`` may be Python floats."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = al * bl - (((p - ah * bh) - al * bh) - ah * bl)
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
 
 
 def _horner(coeffs, x):

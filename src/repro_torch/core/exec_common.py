@@ -35,6 +35,12 @@ def to_device(net: Network, device) -> DeviceNet:
                      torch.as_tensor(net.w_gaba, **f64))
 
 
+def per_neuron(x, n: int, device):
+    """A scalar or per-neuron float64 input as a contiguous f64[n]."""
+    return torch.as_tensor(x, dtype=torch.float64,
+                           device=device).expand(n).contiguous()
+
+
 def batch_init(model: CellModel, n: int, v0: float = -65.0):
     y = model.init_state(v0)
     return y[None, :].repeat(n, 1)

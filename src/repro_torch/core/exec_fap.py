@@ -1,7 +1,12 @@
-"""Fully-Asynchronous Parallel variable-step execution (method 2c), batched.
+"""Fully-Asynchronous Parallel execution models, batched.  Counterpart of
+``repro.core.exec_fap``.
 
-Counterpart of ``repro.core.exec_fap.make_fap_vardt_runner``.  Each
-scheduler round:
+``make_fap_fixed_runner`` -- method 1c: fixed-timestep FAP from the
+authors' previous work: per-neuron clocks advance by whole fixed steps to
+the pairwise dependency horizon; no global barrier.
+
+``make_fap_vardt_runner`` -- method 2c (the paper's contribution):
+non-speculative scheduled variable-timestep stepping.  Each round:
 
   1. horizon[i] = min over in-edges (t[pre] + delay), clamped at t_end and
      t + horizon_cap -- the fused horizon kernel (K5) with
@@ -17,30 +22,126 @@ incremental horizon) make a round's cost follow activity; on a card they
 run the compaction (K6), compact-gather (K7) and segment-rank (K8)
 kernels.
 
-The JAX runner is one ``lax.while_loop`` over rounds; here the rounds are a
-host loop that checks the same ``cond`` every round.  Once every clock has
-reached ``t_end - 1e-9`` or a lane failed, the loop stops, exactly where
-the ``while_loop`` stops.
+The JAX runners are one ``lax.while_loop`` over rounds; here the rounds are
+a host loop that checks the same ``cond`` every round (one sync per
+round), and stops exactly where the ``while_loop`` stops.  The inner loop
+of 1c always runs ``round_cap_steps`` masked iterations, as the JAX
+``fori_loop`` does, so it needs no sync of its own.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import resolve_device
 from repro_torch import sched
 from repro_torch.core import bdf
 from repro_torch.core import events as ev
 from repro_torch.core import exec_common as xc
 from repro_torch.core.cell import CellModel
-from repro_torch.core.exec_bsp import EV_CAP, SPK_CAP, RunResult, make_vardt_advance
+from repro_torch.core.detmath import fma
+from repro_torch.core.exec_bsp import (EV_CAP, SPK_CAP, RunResult, _later,
+                                       make_vardt_advance)
+from repro_torch.core.fixed_step import make_stepper
 from repro_torch.core.network import Network
 from repro_torch.kernels.event_wheel import ops as ew_ops
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes in a later slice of the port (ROADMAP queue 1, "
-        f"item {item})")
+def fixed_steps_below(horizon, t_clock, dt: float, cap: int):
+    """Whole fixed steps of size dt below the horizon, clipped to [0, cap]:
+    ``floor((horizon - t_clock) / dt + 1e-9)``.  Inside ``jax.jit`` XLA
+    multiplies by the reciprocal ``1 / dt`` and its CPU backend contracts
+    the product and the ``+ 1e-9`` into one fused multiply-add; an ulp
+    there moves the floor, so this computes the same fused value."""
+    x = fma(horizon - t_clock, 1.0 / dt, 1e-9)
+    return torch.clamp(torch.floor(x), 0, cap).to(torch.int32)
+
+
+def make_fap_fixed_runner(model: CellModel, net: Network, iinj, t_end: float,
+                          method: str = "cnexp", dt: float = 0.025,
+                          round_cap_steps: int = 16, ev_cap: int = EV_CAP,
+                          max_rounds: int = 2_000_000, queue: str = "dense",
+                          wheel: sched.WheelSpec = sched.WheelSpec(),
+                          fanout: str = "dense", spike_cap: int = 0,
+                          device="cuda"):
+    """Fixed-step FAP (method 1c).  Each round every neuron takes the whole
+    fixed steps its dependency horizon allows, at most
+    ``round_cap_steps``; the round's spikes then fan out.
+
+    queue / fanout / spike_cap as in ``exec_bsp.make_bsp_fixed_runner``.
+    device: "cuda" (default; raises without a card) or "cpu".
+
+    Returns a nullary runner ``run() -> (RunResult, rounds)``.
+    """
+    dev = model.runner_device(device)
+    n = net.n
+    dnet = xc.to_device(net, dev)
+    qops = sched.get_queue_ops(queue, ev_cap=ev_cap, wheel=wheel)
+    qinsert = sched.edge_insert(qops, net)
+    spike_ins = xc.make_spike_insert(net, dnet, qops, qinsert, fanout,
+                                     spike_cap)
+    step = make_stepper(model, method, dt, device=dev)
+    iinj_v = xc.per_neuron(iinj, n, dev)
+    neuron_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    n_total_steps = int(round(t_end / dt))
+    vs = model.idx_vsoma
+
+    def round_body(carry):
+        Y, k, eq, rec, n_ev, n_st, rounds = carry
+        t_clock = k.to(torch.float64) * dt
+        horizon = xc.horizon_times(dnet, n, t_clock, t_end)
+        n_adv = fixed_steps_below(horizon, t_clock, dt, round_cap_steps)
+        spiked_r = torch.zeros((n,), dtype=torch.bool, device=dev)
+        t_sp_r = torch.zeros((n,), dtype=torch.float64, device=dev)
+        for j in range(round_cap_steps):
+            act = j < n_adv
+            t_j = k.to(torch.float64) * dt
+            eq, wa, wg, cnt = qops.deliver_until(
+                eq, torch.where(act, t_j + dt, -torch.inf))
+            Y2 = model.apply_event(Y, wa, wg)
+            v_prev = Y2[:, vs]
+            Y2 = step(Y2, iinj_v)
+            sp, tsp = xc.detect_spikes(v_prev, Y2[:, vs], t_j, t_j + dt)
+            sp = sp & act
+            Y = torch.where(act[:, None], Y2, Y)
+            k = torch.where(act, k + 1, k)
+            spiked_r = spiked_r | sp
+            t_sp_r = torch.where(sp, tsp, t_sp_r)
+            rec = ev.record_spikes(rec, neuron_ids, tsp, sp)
+            n_ev = n_ev + cnt.sum().to(torch.int32)
+            n_st = n_st + act.sum().to(torch.int32)
+        if bool(spiked_r.any()):
+            # a spike-free round inserts nothing: skipping is identical
+            eq = spike_ins(eq, spiked_r, t_sp_r)
+        return Y, k, eq, rec, n_ev, n_st, rounds + 1
+
+    def cond(carry):
+        k, rounds = carry[1], carry[-1]
+        return int(k.min()) < n_total_steps and rounds < max_rounds
+
+    def init_carry():
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        return (xc.batch_init(model, n),
+                torch.zeros((n,), dtype=torch.int32, device=dev),
+                qops.make(n, dev), ev.make_spike_record(n, SPK_CAP, dev),
+                z, z, 0)
+
+    def run(**unported):
+        if unported:
+            raise _later("the robustness knobs of run()", 10)
+        carry = init_carry()
+        while cond(carry):
+            carry = round_body(carry)
+        Y, _, eq, rec, n_ev, n_st, rounds = carry
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        return RunResult(rec, n_st, n_ev, z, eq.dropped,
+                         torch.zeros((), dtype=torch.bool, device=dev),
+                         Y), rounds
+
+    return run
+
+
+def run_fap_fixed(*args, **kw) -> RunResult:
+    res, _ = make_fap_fixed_runner(*args, **kw)()
+    return res
 
 
 def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
@@ -89,9 +190,7 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
     Returns a nullary runner ``run() -> (RunResult, rounds)`` that also
     exposes ``run.init_carry`` / ``run.round_body`` / ``run.cond``.
     """
-    dev = resolve_device(device)
-    if model.device != dev:
-        raise ValueError(f"model lives on {model.device}, runner on {dev}")
+    dev = model.runner_device(device)
     n = net.n
     if batch not in ("dense", "compact"):
         raise ValueError(f"unknown batch mode {batch!r}")
@@ -116,8 +215,7 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
     s_cap = spike_cap if spike_cap > 0 else \
         (cap if batch == "compact" else min(n, 256))
     dnet = xc.to_device(net, dev)
-    iinj_v = torch.as_tensor(iinj, dtype=torch.float64, device=dev)
-    iinj_v = iinj_v.expand(n).contiguous()
+    iinj_v = xc.per_neuron(iinj, n, dev)
     neuron_ids = torch.arange(n, dtype=torch.int64, device=dev)
     advance = make_vardt_advance(model, opts, eg_window, step_budget)
     qops = sched.get_queue_ops(queue, ev_cap=ev_cap, wheel=wheel)

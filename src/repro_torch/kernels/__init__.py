@@ -7,7 +7,8 @@ One subpackage per kernel family, mirroring ``repro.kernels``:
   ref.py     - the plain PyTorch version
 
 Kernels (sources in ``repro_torch/csrc``, built by ``kernels/build.py``):
-  hines       - K1 tree factor, K2 factored solve   (csrc/hines.cu)
+  hines       - K1 tree factor, K2 factored solve,
+                K3 fused solve                       (csrc/hines.cu)
   hh_rhs      - K4 fused HH rates + ionic current   (csrc/hh_rhs.cu)
   event_wheel - K5 fused horizon + runnable score   (csrc/horizon.cu)
                 K6 gather-id compaction, K7 compaction

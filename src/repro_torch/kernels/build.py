@@ -34,9 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict = {}
 _LOGS: dict = {}
-LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hh_rhs": 0,
-            "horizon_score": 0, "compact_ids": 0, "compact_gather": 0,
-            "segment_rank": 0}
+LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
+            "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
+            "compact_gather": 0, "segment_rank": 0}
 
 
 def nvcc_path() -> str:

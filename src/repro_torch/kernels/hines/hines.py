@@ -1,7 +1,9 @@
-"""CUDA wrappers of the Hines factor (K1) and factored solve (K2).
+"""CUDA wrappers of the Hines factor (K1), factored solve (K2) and fused
+solve (K3).
 
-Replace ``repro/kernels/hines/hines.py::hines_factor_pallas`` and
-``::hines_solve_factored_pallas``; the kernels are in ``csrc/hines.cu``.
+Replace ``repro/kernels/hines/hines.py::hines_factor_pallas``,
+``::hines_solve_factored_pallas`` and ``::hines_solve_pallas``; the kernels
+are in ``csrc/hines.cu``.
 Arrays are ``[C, N]`` (compartments x neurons) as in the JAX package; any
 strides are accepted, so a transposed view of ``[N, C]`` rows needs no
 copy.  The output has the strides of its main input.
@@ -27,6 +29,10 @@ def _lib():
             _P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _I32,
             _I32, _P]
         lib.hines_solve_factored_launch.restype = ctypes.c_int
+        lib.hines_solve_launch.argtypes = [
+            _P, _P, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _P, _I64,
+            _I64, _I32, _I32, _P]
+        lib.hines_solve_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -79,4 +85,26 @@ def hines_solve_factored_cuda(parent, g_axial, d_elim, b):
         build.stream_ptr(b.device))
     build.check(err, "hines_solve_factored")
     build.count("hines_solve_factored")
+    return out
+
+
+def hines_solve_cuda(parent, g_axial, d, b):
+    """K3: d, b [C, N] -> x [C, N] (elimination + both sweeps, fused).
+
+    ``d`` is eliminated in a [C, N] workspace, so neither input changes."""
+    C, N = b.shape
+    _check_mat(b, "b", (C, N))
+    _check_mat(d, "d", (C, N))
+    if d.device != b.device:
+        raise ValueError("d and b must be on the same device")
+    _check_tree(parent, g_axial, C, b.device)
+    work = torch.empty((C, N), dtype=torch.float64, device=b.device)
+    out = torch.empty_like(b)
+    err = _lib().hines_solve_launch(
+        build.ptr(parent), build.ptr(g_axial), build.ptr(d), d.stride(0),
+        d.stride(1), build.ptr(b), b.stride(0), b.stride(1), build.ptr(work),
+        work.stride(0), work.stride(1), build.ptr(out), out.stride(0),
+        out.stride(1), C, N, build.stream_ptr(b.device))
+    build.check(err, "hines_solve")
+    build.count("hines_solve")
     return out

@@ -1,4 +1,4 @@
-"""Dispatch of the Hines factor (K1) and factored solve (K2).
+"""Dispatch of the Hines factor (K1), factored solve (K2) and fused solve (K3).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel, and a
 kernel that cannot launch raises -- there is no fallback.  Arrays are
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.hines import ref
 from repro_torch.kernels.hines.hines import (hines_factor_cuda,
+                                             hines_solve_cuda,
                                              hines_solve_factored_cuda)
 
 
@@ -30,3 +31,10 @@ def hines_solve_factored(parent, g_axial, d_elim, b):
     if _device_type(b) == "cuda":
         return hines_solve_factored_cuda(parent, g_axial, d_elim, b)
     return ref.hines_solve_factored_ref(parent, g_axial, d_elim, b)
+
+
+def hines_solve(parent, g_axial, d, b):
+    """d, b f64[C, N] -> x f64[C, N] (fused eliminate + solve)."""
+    if _device_type(b) == "cuda":
+        return hines_solve_cuda(parent, g_axial, d, b)
+    return ref.hines_solve_ref(parent, g_axial, d, b)

@@ -71,9 +71,36 @@ def test_kernels_bitwise_equal_to_plain(dev, name):
                                          horizon_cap=2.0)):
         _eq(a, r)
     assert build.launches() == {"hines_factor": 1, "hines_solve_factored": 1,
-                                "hh_rhs": 1, "horizon_score": 1,
-                                "compact_ids": 0, "compact_gather": 0,
-                                "segment_rank": 0}
+                                "hines_solve": 0, "hh_rhs": 1,
+                                "horizon_score": 1, "compact_ids": 0,
+                                "compact_gather": 0, "segment_rank": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["soma", "ball_and_stick", "branched"])
+@pytest.mark.parametrize("N", [1, 777, 16384])
+def test_fused_solve_bitwise_equal_to_plain_and_factored(dev, name, N):
+    """K3 against its plain version and against K2(K1(d), b), on [C, N]
+    inputs and on transposed [N, C] rows; the inputs stay untouched."""
+    m = morphology.by_name(name)
+    g = torch.Generator().manual_seed(N + m.n_comp)
+    C = m.n_comp
+    par = torch.as_tensor(m.parent, dtype=torch.int32)
+    gax = torch.as_tensor(m.g_axial)
+    d = hines_assemble(m.parent, gax, torch.rand((N, C), generator=g,
+                                                 dtype=torch.float64) + 0.5)
+    b = torch.randn((N, C), generator=g, dtype=torch.float64)
+    pd, gd, dT, bT = par.to(dev), gax.to(dev), d.T.to(dev), b.T.to(dev)
+    build.reset_launches()
+    x = h_ops.hines_solve(pd, gd, dT, bT)
+    assert build.launches()["hines_solve"] == 1
+    _eq(x, h_ref.hines_solve_ref(par, gax, d.T, b.T))
+    _eq(x, h_ops.hines_solve_factored(pd, gd, h_ops.hines_factor(pd, gd, dT),
+                                      bT))
+    rows_d, rows_b = d.to(dev), b.to(dev)
+    _eq(h_ops.hines_solve(pd, gd, rows_d.T, rows_b.T), x)
+    _eq(rows_d, d)
+    _eq(rows_b, b)
 
 
 @pytest.mark.cuda
@@ -149,7 +176,8 @@ def test_active_path_card_equals_cpu_and_dense(dev):
     build.reset_launches()
     act = dict(batch="compact", batch_cap=8, fanout="compact", spike_cap=4)
     (a, ra), (b, rb) = go(dev, **act), go(torch.device("cpu"), **act)
-    assert all(v > 0 for v in build.launches().values())
+    assert all(v > 0 for k, v in build.launches().items()
+               if k != "hines_solve")
     assert ra == rb and int(a.rec.count.sum()) > 0
     _eq(a.rec.times, b.rec.times)
     _eq(a.y_final, b.y_final)
@@ -160,3 +188,39 @@ def test_active_path_card_equals_cpu_and_dense(dev):
     _eq(c.rec.times, d.rec.times)
     _eq(c.y_final, d.y_final)
     assert int(c.n_events) == int(d.n_events)
+
+
+@pytest.mark.cuda
+def test_baselines_card_equal_cpu(dev):
+    """Method 2a (BSP fixed, derivimplicit) and 2c under the iteration
+    policy: bitwise the same run on the card and the CPU; the card's runs
+    launch K3 (once per fixed step) and, under "iteration", never K1/K2."""
+    from repro_torch.core.bdf import BDFOptions
+    from repro_torch.core.exec_bsp import run_bsp_fixed
+    net = network.make_network(24, k_in=4, seed=3)
+    iinj = 0.3 * (1.0 + 0.2 * np.random.default_rng(0).random(24))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = CellModel(morphology.ball_and_stick(), device=d)
+        build.reset_launches()
+        out[d.type, "2a"] = run_bsp_fixed(model, net, iinj, 6.0,
+                                          method="derivimplicit", device=d)
+        out[d.type, "2a-launches"] = build.launches()
+        build.reset_launches()
+        out[d.type, "2c"] = make_fap_vardt_runner(
+            model, net, iinj, 6.0, opts=BDFOptions(jac_policy="iteration"),
+            horizon_impl="fused", device=d)()[0]
+        out[d.type, "2c-launches"] = build.launches()
+    for k in ("2a", "2c"):
+        a, b = out["cuda", k], out["cpu", k]
+        assert int(a.rec.count.sum()) > 0
+        _eq(a.rec.times, b.rec.times)
+        _eq(a.y_final, b.y_final)
+        assert int(a.n_steps) == int(b.n_steps)
+        assert int(a.n_events) == int(b.n_events) and int(a.dropped) == 0
+    assert out["cuda", "2a-launches"]["hines_solve"] == 240
+    la = out["cuda", "2c-launches"]
+    assert la["hines_solve"] > 0
+    assert la["hines_factor"] == la["hines_solve_factored"] == 0
+    assert int(out["cuda", "2c"].solver["nsetups"]) == \
+        int(out["cuda", "2c"].solver["nni"])

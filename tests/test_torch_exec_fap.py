@@ -48,6 +48,14 @@ CASES = {
     "soma-uniform-scatter-k-eg": ("soma", "uniform", 12, 0.16,
                                   dict(horizon_impl="scatter", k_select=5,
                                        eg_window=0.0125)),
+    # the other three topologies, dense knobs (their generators need N
+    # divisible by 8 blocks, and grid2d a square grid: N = 16)
+    "soma-block-fused": ("soma", "block", 16, 0.16,
+                         dict(horizon_impl="fused")),
+    "soma-grid2d-fused": ("soma", "grid2d", 16, 0.16,
+                          dict(horizon_impl="fused")),
+    "bs-smallworld-fused": ("ball_and_stick", "smallworld", 16, 0.3,
+                            dict(horizon_impl="fused")),
 }
 LONG = ["soma-uniform-fused", "soma-ring-fused", "bs-uniform-fused"]
 

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import exec_fap, morphology, network
+from repro_torch.core import (calibrate, exec_bsp, exec_fap, fixed_step,
+                              morphology, network)
 from repro_torch.core.cell import CellModel
 from repro_torch.kernels.event_wheel import ops as ew_ops
 from repro_torch.kernels.hh_rhs import ops as hh_ops
@@ -99,6 +100,17 @@ def test_default_device_raises_without_cuda(no_cuda):
         exec_fap.make_fap_vardt_runner(model, net, 0.1, 1.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         exec_fap.run_fap_vardt(model, net, 0.1, 1.0, horizon_impl="fused")
+    for make in (exec_bsp.make_bsp_fixed_runner,
+                 exec_bsp.make_bsp_vardt_runner,
+                 exec_fap.make_fap_fixed_runner):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(model, net, 0.1, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fixed_step.make_stepper(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fixed_step.run_fixed(model, model.init_state(), 1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calibrate.threshold_current(model, t_end=1.0)
 
 
 class _CudaLike:
@@ -116,6 +128,8 @@ def _boom(*_a, **_k):
      lambda x: hines_ops.hines_factor(None, None, x)),
     (hines_ops, "hines_solve_factored_cuda",
      lambda x: hines_ops.hines_solve_factored(None, None, x, x)),
+    (hines_ops, "hines_solve_cuda",
+     lambda x: hines_ops.hines_solve(None, None, x, x)),
     (hh_ops, "hh_rhs_cuda", lambda x: hh_ops.hh_rhs(None, x, x, x, x)),
     (ew_ops, "horizon_score_cuda",
      lambda x: ew_ops.horizon_score(x, None, None, t_end=1.0,
@@ -137,11 +151,15 @@ def test_cuda_wrappers_reject_cpu_tensors():
         compact_gather_cuda, compact_ids_cuda, horizon_score_cuda,
         segment_rank_cuda)
     from repro_torch.kernels.hh_rhs.hh_rhs import hh_rhs_cuda
-    from repro_torch.kernels.hines.hines import hines_factor_cuda
+    from repro_torch.kernels.hines.hines import (hines_factor_cuda,
+                                                 hines_solve_cuda)
     x = torch.zeros((3, 4), dtype=torch.float64)
     with pytest.raises(ValueError):
         hines_factor_cuda(torch.zeros(3, dtype=torch.int32),
                           torch.zeros(3, dtype=torch.float64), x)
+    with pytest.raises(ValueError):
+        hines_solve_cuda(torch.zeros(3, dtype=torch.int32),
+                         torch.zeros(3, dtype=torch.float64), x, x)
     with pytest.raises(ValueError):
         hh_rhs_cuda(torch.zeros(4, dtype=torch.float64), x, x, x, x)
     with pytest.raises(ValueError):
@@ -164,6 +182,8 @@ def test_other_devices_are_refused():
         hh_ops.hh_rhs(x[0], x, x, x, x)
     with pytest.raises(ValueError):
         hines_ops.hines_factor(None, None, x)
+    with pytest.raises(ValueError):
+        hines_ops.hines_solve(None, None, x, x)
     m = torch.zeros(3, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError):
         ew_ops.compact_ids(m, 2)
