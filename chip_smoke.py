@@ -42,7 +42,23 @@ Phases, each reported on its own lines:
      width, 5 ms: nsetups == nni, K3 launched, K1/K2 not);
  11. 2a and 2c-iteration at N=64 on the card and on the CPU: spike trains,
      steps and final states bitwise equal;
- 12. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
+ 12. the SPMD round (``repro_torch.distributed.run_fap_spmd``) at full
+     width and 20 ms: four ranks share the card over gloo, on phase 3's
+     cell, network and currents, once with ``transport="sparse"`` and the
+     dense knobs and once with the full stack (``sparse_ragged``, compact
+     batch and fan-out, wheel queue, incremental horizon): both reach
+     t_end with nothing dropped, have equal spike counts, events and
+     steps, and launch K9, K1, K2, K4 on every rank (K6-K8 in the full
+     stack); per channel bytes and host wall per round beside the
+     allgather transport's bytes, and the fullest rank pair's parcel of
+     each round;
+ 13. the parcel packer K9 against its plain version on the card, bitwise,
+     at the SPMD path's shapes (D = 4 ranks, M = 4096, its parcel cap):
+     masks of 0-100 %, a row over the cap and a mask phase 12 produced;
+ 14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
+     the single-host ``run_fap_vardt(step_budget=8)``, and four card ranks
+     == four CPU ranks bitwise (spike trains, steps, final states);
+ 15. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path (device busy
      share, busiest kernels).
 
@@ -87,6 +103,7 @@ REPLACES = {
     "compact_ids": "src/repro/kernels/event_wheel/event_wheel.py:115",
     "compact_gather": "src/repro/kernels/event_wheel/event_wheel.py:176",
     "segment_rank": "src/repro/kernels/event_wheel/event_wheel.py:234",
+    "compact_rows": "src/repro/kernels/event_wheel/event_wheel.py:256",
 }
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
@@ -94,17 +111,31 @@ SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hh_rhs": f"{SRC}/hh_rhs.cu", "horizon_score": f"{SRC}/horizon.cu",
           "compact_ids": f"{SRC}/compact.cu",
           "compact_gather": f"{SRC}/compact.cu",
-          "segment_rank": f"{SRC}/segment_rank.cu"}
+          "segment_rank": f"{SRC}/segment_rank.cu",
+          "compact_rows": f"{SRC}/compact.cu"}
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "hines_solve_kernel",
                "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
-               "compact_gather_kernel", "segment_rank_kernel")
+               "compact_gather_kernel", "segment_rank_kernel",
+               "compact_rows_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
 BASELINE_PATH = ("hines_solve",)
 ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
               spike_cap="auto", queue="wheel")
+RANKS = 4                      # SPMD ranks, all on cuda:0 (one card)
+SPMD_T_END = 20.0              # simulated ms of the full-width SPMD runs
+PARCEL_CAP = 2048              # parcel slots per (source, dest) rank pair
+SPMD_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
+             "compact_rows")
+SPMD_RUNS = {
+    "sparse": dict(transport="sparse"),
+    "full_stack": dict(transport="sparse_ragged", batch="compact",
+                       fanout="compact", queue="wheel",
+                       horizon="incremental"),
+}
+FULL_STACK_PATH = ("compact_ids", "compact_gather", "segment_rank")
 
 
 def say(phase, msg):
@@ -327,8 +358,8 @@ def phase_main(dev, t_end):
     missing = [k for k in DENSE_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    return launches, dict(rounds=rounds, wall_s=wall, spikes=spikes,
-                          n_steps=int(res.n_steps),
+    return launches, dict(t_end=t_end, rounds=rounds, wall_s=wall,
+                          spikes=spikes, n_steps=int(res.n_steps),
                           n_events=int(res.n_events),
                           n_resets=int(res.n_resets), solver=solver,
                           counts=res.rec.count.cpu().numpy())
@@ -823,6 +854,238 @@ def phase_baselines_card_vs_cpu(dev, n=64, t_end=10.0):
             raise AssertionError(f"{name} differs card vs CPU")
 
 
+# --------------------------------------------------------------- phase 12 --
+def _spmd_rank(group, n, t_end, runs, keep_masks=False):
+    """Runs of ``run_fap_spmd`` on this rank (phase 3's cell, network and
+    currents at width ``n``), each with the launch counts zeroed just
+    before.  Returns, from every rank: launch counts per rank and
+    (``keep_masks``) rank 0's busiest parcel mask, which phase 13 hands
+    to K9 again."""
+    from repro_torch.core.cell import CellModel
+    from repro_torch.core.morphology import branched_tree
+    from repro_torch.core.network import make_network
+    from repro_torch.distributed.exchange import ExchangeSpec
+    from repro_torch.distributed.fap_spmd import run_fap_spmd
+    from repro_torch.kernels import build
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    from repro_torch.sched import WheelSpec
+    model = CellModel(branched_tree(depth=2, seg_per_branch=2),
+                      device=group.device)
+    net = make_network(n, k_in=K_IN, seed=NET_SEED)
+    cur = regime_currents(n)
+    real = ew_ops.spike_compact
+    out = {}
+    for name, kw in runs.items():
+        kw = dict(kw)
+        if kw.get("queue") == "wheel":
+            kw["wheel"] = WheelSpec.auto(net)
+        masks = []
+
+        def keep(mask, values, cap):
+            masks.append(mask)
+            return real(mask, values, cap)
+
+        if keep_masks:
+            ew_ops.spike_compact = keep
+        build.reset_launches()
+        if group.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res, rounds = run_fap_spmd(
+                model, net, cur, t_end, group,
+                exchange=ExchangeSpec(parcel_cap=kw.pop("parcel_cap")),
+                **kw)
+        finally:
+            ew_ops.spike_compact = real
+        if group.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        names = list(build.launches())
+        counts = group.all_gather(torch.tensor(
+            [list(build.launches().values())]), "other")
+        out[name] = dict(res=res, rounds=rounds, wall_s=wall,
+                         launches=dict(zip(names, counts.T.tolist())))
+        if keep_masks:
+            if len(masks) != rounds:
+                raise AssertionError(f"spmd {name}: {len(masks)} parcel "
+                                     f"masks kept in {rounds} rounds")
+            out[name]["mask"] = max(masks, key=lambda m: int(m.sum())) \
+                .contiguous()
+    return out
+
+
+def _same_spmd(a, b):
+    return (torch.equal(a.rec.times.cpu(), b.rec.times.cpu())
+            and torch.equal(a.rec.count.cpu(), b.rec.count.cpu())
+            and torch.equal(a.y_final.cpu(), b.y_final.cpu())
+            and int(a.n_steps) == int(b.n_steps)
+            and int(a.n_events) == int(b.n_events))
+
+
+def phase_spmd(dev, t_end, main):
+    """The SPMD round at full width, four ranks on the card."""
+    from repro_torch.distributed.group import launch
+    t0 = time.perf_counter()
+    runs = launch(RANKS, _spmd_rank, N_MAIN, t_end,
+                  {k: dict(kw, parcel_cap=PARCEL_CAP)
+                   for k, kw in SPMD_RUNS.items()}, True,
+                  backend="gloo", device=dev)
+    say("spmd", f"{RANKS} ranks on {dev} over gloo, N={N_MAIN} C=13 "
+        f"k_in={K_IN} t_end={t_end} ms, parcel_cap {PARCEL_CAP} (classes "
+        f"of the ragged run {list(_ladder())}); spawn, build and both runs "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, r in runs.items():
+        res, rounds = r["res"], r["rounds"]
+        spikes = int(res.rec.count.sum())
+        ch = res.comm["channels"]
+        per = {k: {"bytes_per_round": v["bytes"] / rounds,
+                   "ms_per_round": v["seconds"] / rounds * 1e3,
+                   "calls": v["calls"]}
+               for k, v in ch.items()}
+        parcel = {k: v for k, v in per.items()
+                  if k.startswith("exchange_parcel")}
+        ref = f" (phase 3, one process, {main['t_end']} ms: " \
+            f"{main['wall_s'] / max(main['rounds'], 1) * 1e3:.1f})"
+        say("spmd", f"{name} {SPMD_RUNS[name]}: rounds {rounds}, n_steps "
+            f"{int(res.n_steps)}, n_events {int(res.n_events)}, spikes "
+            f"{spikes}, dropped {int(res.dropped)}, record overflow "
+            f"{int(res.rec.overflow)}, failed {bool(res.failed)}; wall "
+            f"{r['wall_s']:.2f} s, {r['wall_s'] / max(rounds, 1) * 1e3:.1f} "
+            f"ms per round{ref}")
+        say("spmd", f"{name} bytes per round on rank 0: notify "
+            f"{per['exchange_notify']['bytes_per_round']:.0f} (allgather: "
+            f"N*8 = {N_MAIN * 8}), parcel "
+            f"{sum(v['bytes_per_round'] for v in parcel.values()):.0f} "
+            f"(allgather: N*9 = {N_MAIN * 9}), counts "
+            f"{per.get('exchange_counts', {}).get('bytes_per_round', 0):.0f}"
+            f"; per tag {json.dumps({k: v['bytes_per_round'] for k, v in per.items()})}")
+        say("spmd", f"{name} host wall inside the collectives, ms per round "
+            f"on rank 0: "
+            f"{json.dumps({k: round(v['ms_per_round'], 3) for k, v in per.items()})}")
+        peak = res.comm["parcel_peak"]
+        say("spmd", f"{name} largest per-pair parcel count per round: max "
+            f"{max(peak, default=0)}, by round {peak}")
+        say("spmd", f"{name} launches per rank {json.dumps(r['launches'])}")
+        _gate_run(f"spmd {name}", res)
+        if rounds >= 400:
+            raise AssertionError(f"spmd {name}: did not reach t_end")
+        if len(peak) != rounds or not 0 < max(peak) <= PARCEL_CAP:
+            raise AssertionError(f"spmd {name}: parcel peaks {peak} in "
+                                 f"{rounds} rounds, cap {PARCEL_CAP}")
+        missing = [k for k in SPMD_PATH if min(r["launches"][k]) <= 0]
+        if missing:
+            raise AssertionError(f"spmd {name}: some rank never launched "
+                                 f"{missing}")
+        out[name] = dict(rounds=rounds, wall_s=r["wall_s"], spikes=spikes,
+                         n_steps=int(res.n_steps),
+                         n_events=int(res.n_events), channels=per,
+                         parcel_peak=peak, launches=r["launches"])
+    a, b = runs["sparse"]["res"], runs["full_stack"]["res"]
+    fin = torch.isfinite(a.rec.times)
+    dts = float((a.rec.times[fin] - b.rec.times[fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    bitwise = _same_spmd(a, b)
+    say("spmd", f"sparse vs full stack: spike counts, events and steps "
+        f"equal: {torch.equal(a.rec.count, b.rec.count)}, "
+        f"{int(a.n_events) == int(b.n_events)}, "
+        f"{int(a.n_steps) == int(b.n_steps)}; spike times within {dts:.2e} "
+        f"ms; bitwise equal (times, final states): {bitwise}")
+    if not torch.equal(a.rec.count, b.rec.count) or dts > 1e-9 \
+            or int(a.n_events) != int(b.n_events) \
+            or int(a.n_steps) != int(b.n_steps):
+        raise AssertionError("spmd: the full stack differs from sparse")
+    fs = runs["full_stack"]["launches"]
+    missing = [k for k in FULL_STACK_PATH if sum(fs[k]) <= 0]
+    if missing:
+        raise AssertionError(f"spmd full stack never launched {missing}")
+    out["bitwise"] = bitwise
+    return out, runs["sparse"]["mask"], sum(runs["sparse"]["launches"]
+                                            ["compact_rows"])
+
+
+def _ladder():
+    from repro_torch.distributed.exchange import ExchangeSpec
+    return ExchangeSpec(parcel_cap=PARCEL_CAP).class_ladder()
+
+
+# --------------------------------------------------------------- phase 13 --
+def phase_parcel_kernel(dev, path_mask):
+    """K9 against its plain version, bitwise, at the SPMD path's shapes."""
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    from repro_torch.kernels.event_wheel import ref as ew_ref
+    D, M, cap = RANKS, N_MAIN // RANKS, PARCEL_CAP
+    gen = np.random.default_rng(13)
+    row = torch.from_numpy(gen.random(M) * 20.0).to(dev)
+    vals = row[None, :].expand(D, M)              # the transport's strides
+    masks = {f"{d:.0%}": torch.from_numpy(gen.random((M, D)) < d).to(dev).T
+             for d in (0.0, 0.05, 0.5, 1.0)}
+    over = torch.from_numpy(gen.random((D, M)) < 0.05).to(dev)
+    over[1, : cap + 100] = True                   # one row past the cap
+    masks["row over cap"] = over
+    masks["spmd path"] = path_mask.to(dev)
+    for name, m in masks.items():
+        got = ew_ops.spike_compact(m, vals, cap)
+        want = ew_ref.compact_rows_ref(m, vals, cap)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"compact_rows mask={name}: kernel "
+                                     f"differs from its plain version")
+    if int(over[1].sum()) <= cap:
+        raise AssertionError("no compact_rows case with a row over the cap")
+    m = masks["spmd path"]
+    kept = int(torch.clamp(m.sum(dim=1), max=cap).sum())
+    t9 = cuda_ms(lambda: ew_ops.spike_compact(m, vals, cap))
+    t9p = cuda_ms(lambda: ew_ref.compact_rows_ref(m, vals, cap))
+    nbytes = D * M + 8 * kept + D * cap * (4 + 8) + 4 * D
+    row = (0.0, t9, t9p, *bound_ms(nbytes, D * M, INT32_OPS), None)
+    say("parcel-kernel", f"compact_rows D={D} M={M} cap={cap}, masks "
+        f"{list(masks)} (path mask: {int(m.sum())} set, {kept} kept): "
+        f"bitwise; {t9:.4f} ms (plain {t9p:.4f}); bound {row[3]:.6f} ms "
+        f"({row[4]}, {nbytes} bytes)")
+    return {"compact_rows": row}
+
+
+# --------------------------------------------------------------- phase 14 --
+def phase_spmd_small(dev, n=256, t_end=5.0):
+    """At N=256: allgather == sparse == the single-host runner on the card;
+    four card ranks == four CPU ranks."""
+    from repro_torch.core.exec_fap import run_fap_vardt
+    from repro_torch.distributed.group import launch
+    t0 = time.perf_counter()
+    runs = {"allgather": dict(transport="allgather", parcel_cap=64),
+            "sparse": dict(transport="sparse", parcel_cap=64)}
+    card = launch(RANKS, _spmd_rank, n, t_end, runs, backend="gloo",
+                  device=dev)
+    cpu = launch(RANKS, _spmd_rank, n, t_end, {"sparse": runs["sparse"]},
+                 backend="gloo", device="cpu")
+    model, net = _baseline_model_net(dev, n)
+    single = run_fap_vardt(model, net, regime_currents(n), t_end,
+                           step_budget=8, ev_cap=32, device=dev)
+    ag, sp, sc = card["allgather"]["res"], card["sparse"]["res"], \
+        cpu["sparse"]["res"]
+    spk = sp.rec.times.shape[1]
+    single = single._replace(rec=single.rec._replace(
+        times=single.rec.times[:, :spk].cpu()))
+    same_ag = _same_spmd(ag, sp) and \
+        card["allgather"]["rounds"] == card["sparse"]["rounds"]
+    same_1 = _same_spmd(sp, single)
+    same_cpu = _same_spmd(sp, sc) and \
+        card["sparse"]["rounds"] == cpu["sparse"]["rounds"]
+    say("spmd-small", f"N={n} C=13 t_end={t_end} ms, {RANKS} ranks: spikes "
+        f"{int(sp.rec.count.sum())}, n_steps card {int(sp.n_steps)} cpu "
+        f"{int(sc.n_steps)} single-host {int(single.n_steps)}; allgather "
+        f"== sparse: {same_ag}; sparse == single-host run_fap_vardt("
+        f"step_budget=8): {same_1}; card ranks == CPU ranks bitwise: "
+        f"{same_cpu} ({time.perf_counter() - t0:.1f} s)")
+    for name, r in (("allgather", ag), ("sparse", sp), ("cpu sparse", sc)):
+        _gate_run(f"spmd-small {name}", r)
+    if not (same_ag and same_1 and same_cpu):
+        raise AssertionError("spmd-small: runs differ")
+
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -863,8 +1126,8 @@ def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--t-end", type=float, default=20.0,
-                    help="simulated ms of the full-width main path")
+    ap.add_argument("--t-end", type=float, default=12.0,
+                    help="simulated ms of the full-width phases 3, 4 and 9")
     ap.add_argument("--out", default=None, help="also write results as JSON")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS",
                     help="also trace this many full-width rounds")
@@ -887,6 +1150,10 @@ def main(argv=None):
     base_launches, base = phase_baseline(dev, args.t_end, main_stats)
     others = phase_other_baselines(dev)
     phase_baselines_card_vs_cpu(dev)
+    spmd, path_mask, launches["compact_rows"] = phase_spmd(dev, SPMD_T_END,
+                                                           main_stats)
+    rows.update(phase_parcel_kernel(dev, path_mask))
+    phase_spmd_small(dev)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -912,7 +1179,7 @@ def main(argv=None):
             {"gpu": smi, "kernels": kernels, "main": main_stats,
              "active": act, "active_launches": act_launches,
              "baseline_2a": base, "baseline_2a_launches": base_launches,
-             "other_baselines": others}, indent=1))
+             "other_baselines": others, "spmd": spmd}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -65,11 +65,18 @@ def fanout_edges(dnet: DeviceNet, spiked, t_spike):
 
 
 def horizon_times(dnet: DeviceNet, n: int, t_clock, t_end, *,
-                  horizon_cap=None):
+                  t_table=None, horizon_cap=None):
     """FAP dependency horizon: t_max[i] = min over in-edges (t[pre]+delay),
     a scatter-min over the static edge list.  Neurons without in-edges get
-    t_end."""
-    cand = t_clock[dnet.pre] + dnet.delay
+    t_end.
+
+    The shard-local SPMD round (``repro_torch.distributed.fap_spmd``)
+    passes its local edge slice with the shard-relative post index in
+    ``dnet.post`` and the notify clock table as ``t_table``: ``dnet.pre``
+    then indexes the global table while ``t_clock`` (the cap term) stays
+    shard-local.  ``t_table`` defaults to ``t_clock``."""
+    tt = t_clock if t_table is None else t_table
+    cand = tt[dnet.pre] + dnet.delay
     hor = torch.full((n,), t_end, dtype=t_clock.dtype, device=t_clock.device)
     hor = hor.scatter_reduce(0, dnet.post, cand, "amin", include_self=True)
     hor = torch.clamp(hor, max=t_end)
@@ -291,6 +298,57 @@ def scatter_lanes(full, batch, ids):
     padded = type(full)(*[_pad_rows(x, cap) for x in full])
     out = bdf.scatter_lanes(padded, unique_pad_ids(ids, n).long(), batch)
     return type(full)(*[x[:n] for x in out])
+
+
+class SimCarry(NamedTuple):
+    """The round-boundary state of a vardt run as one tuple (``repro.core
+    .exec_common.SimCarry``): the batched ``bdf.BDFState``, the queue (the
+    SPMD round's raw ``(t, w_ampa, w_gaba)`` planes), the spike record, the
+    incremental-horizon carry (possibly empty) and the scalar counters."""
+    sts: object
+    eq: object
+    rec: object
+    hcarry: tuple
+    counters: dict
+
+
+def empty_health(watchdog: bool = True) -> dict:
+    """The ``RunResult.health`` record a watchdog-driven run fills
+    (``repro.core.exec_common.empty_health``): every rollback, regression,
+    violation and drop is counted, and ``rollback_exhausted`` escalates to
+    ``RunResult.failed``."""
+    return {
+        "watchdog": bool(watchdog),
+        "checks": 0,                 # rounds the watchdog inspected
+        "nonfinite_rounds": 0,       # rounds with a non-finite lane detected
+        "clock_regressions": 0,      # lanes whose clock moved backwards
+        "horizon_violations": 0,     # carried horizon past clock + cap
+        "rollbacks": 0,              # quarantine-and-rollback events
+        "rollback_exhausted": False,  # bounded retries spent -> failed
+        "checkpoints_saved": 0,
+        "resumed_from": None,        # round the run resumed at (or None)
+        "elastic_reseeded": False,   # hcarry reseeded on mesh-shape change
+        "dropped_events": 0,         # queue + parcel overflow (escalated)
+        "straggler": None,           # StragglerMonitor.stats()
+    }
+
+
+def health_check(sts, t_prev, horizon=None, horizon_cap=None,
+                 eps: float = 1e-9) -> dict:
+    """Per-round finiteness and invariant check (int32 scalars, no host
+    read): lanes whose BDF history ``zn``, clock ``t`` or step ``h`` is not
+    finite; clocks that moved behind the previous round's; a carried
+    horizon past its lane's clock plus ``horizon_cap``."""
+    zn_ok = torch.isfinite(sts.zn).reshape(sts.zn.shape[0], -1).all(dim=1)
+    lane_bad = ~zn_ok | ~torch.isfinite(sts.t) | ~torch.isfinite(sts.h)
+    out = {
+        "nonfinite_lanes": lane_bad.sum().to(torch.int32),
+        "clock_regress": (sts.t < t_prev - eps).sum().to(torch.int32),
+    }
+    if horizon is not None and horizon_cap is not None:
+        out["horizon_violations"] = \
+            (horizon > sts.t + horizon_cap + eps).sum().to(torch.int32)
+    return out
 
 
 def spike_rates(rec: ev.SpikeRecord, t_lo: float, t_hi: float):

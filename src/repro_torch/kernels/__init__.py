@@ -14,4 +14,5 @@ Kernels (sources in ``repro_torch/csrc``, built by ``kernels/build.py``):
                 K6 gather-id compaction, K7 compaction
                 + table-row gather                   (csrc/compact.cu)
                 K8 segment ranking                   (csrc/segment_rank.cu)
+                K9 row-wise parcel compaction        (csrc/compact.cu)
 """

@@ -36,7 +36,7 @@ _LIBS: dict = {}
 _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
             "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
-            "compact_gather": 0, "segment_rank": 0}
+            "compact_gather": 0, "segment_rank": 0, "compact_rows": 0}
 
 
 def nvcc_path() -> str:

@@ -10,6 +10,8 @@
   ``compact_gather_pallas``.
 * K8 ``segment_rank_cuda`` (``csrc/segment_rank.cu``) replaces
   ``segment_rank_pallas``.
+* K9 ``compact_rows_cuda`` (``csrc/compact.cu``) replaces
+  ``compact_rows_pallas``, the spike-parcel packer.
 
 Each wrapper checks device, type, shape and contiguity, allocates its
 outputs, launches on the current stream and adds one to its launch count.
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 _I32, _P, _F64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
+_I64 = ctypes.c_longlong
 
 
 _SIGNATURES = {
@@ -30,7 +33,9 @@ _SIGNATURES = {
                                          _F64, _P, _P, _P]},
     "compact": {"compact_ids_launch": [_P, _I32, _I32, _P, _P, _P],
                 "compact_gather_launch": [_P, _I32, _P, _I32, _I32, _I32, _P,
-                                          _P, _P, _P]},
+                                          _P, _P, _P],
+                "compact_rows_launch": [_P, _I64, _I64, _P, _I64, _I64, _I32,
+                                        _I32, _I32, _P, _P, _P, _P]},
     "segment_rank": {"segment_rank_launch": [_P, _I32, _I32, _P, _P]},
 }
 
@@ -135,3 +140,32 @@ def segment_rank_cuda(key, max_rank: int):
     build.check(err, "segment_rank")
     build.count("segment_rank")
     return rank
+
+
+def compact_rows_cuda(mask, values, cap: int):
+    """mask bool[D, M], values f64[D, M] (any strides, a row broadcast to
+    D included) -> (idx i32[D, cap], vals f64[D, cap], count i32[D]): each
+    row's first ``cap`` kept columns in column order (sentinel M) and
+    their values (0 in empty slots), and the kept count per row."""
+    if not mask.is_cuda or mask.dtype != torch.bool or mask.dim() != 2:
+        raise ValueError("mask must be a bool[D, M] CUDA tensor")
+    D, M = mask.shape
+    dev = mask.device
+    if values.dtype != torch.float64 or tuple(values.shape) != (D, M) \
+            or values.device != dev:
+        raise ValueError("values must be a float64[D, M] tensor on the "
+                         "mask's device")
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
+    idx = torch.empty((D, cap), dtype=torch.int32, device=dev)
+    vals = torch.empty((D, cap), dtype=torch.float64, device=dev)
+    cnt = torch.empty((D,), dtype=torch.int32, device=dev)
+    if D == 0:
+        return idx, vals, cnt
+    err = _lib("compact").compact_rows_launch(
+        build.ptr(mask), mask.stride(0), mask.stride(1), build.ptr(values),
+        values.stride(0), values.stride(1), D, M, int(cap), build.ptr(idx),
+        build.ptr(vals), build.ptr(cnt), build.stream_ptr(dev))
+    build.check(err, "compact_rows")
+    build.count("compact_rows")
+    return idx, vals, cnt

@@ -1,9 +1,9 @@
-"""Scheduler-kernel dispatch (K5-K8), the by-post layout and threshold
+"""Scheduler-kernel dispatch (K5-K9), the by-post layout and threshold
 selection.  Counterpart of ``repro.kernels.event_wheel.ops``.
 
-``horizon_score``, ``compact_ids``, ``compact_gather`` and
-``segment_rank`` launch the CUDA kernel for CUDA tensors and run the plain
-version for CPU tensors -- no fallback and no ``impl=`` knob.  The JAX
+``horizon_score``, ``compact_ids``, ``compact_gather``, ``segment_rank``
+and ``spike_compact`` launch the CUDA kernel for CUDA tensors and run the
+plain version for CPU tensors -- no fallback and no ``impl=`` knob.  The JAX
 wrappers' ``domain="batch"`` key remap and scatter-min ``impl`` are
 workarounds for running off the TPU; the pairwise ranking here needs
 neither (its cost does not depend on the number of keys).  Ranks of
@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels.event_wheel import ref
 from repro_torch.kernels.event_wheel.event_wheel import (compact_gather_cuda,
                                                          compact_ids_cuda,
+                                                         compact_rows_cuda,
                                                          horizon_score_cuda,
                                                          segment_rank_cuda)
 
@@ -68,6 +69,19 @@ def segment_rank(key, max_rank: int):
     if _on_cuda(key, "segment_rank"):
         return segment_rank_cuda(key, max_rank)
     return ref.segment_rank_ref(key, max_rank)
+
+
+def spike_compact(mask, values, cap: int):
+    """Row-wise capped compaction of spike streams into parcel buffers
+    (K9), the packer of the sparse spike-parcel transport
+    (``repro_torch.distributed.exchange``).  mask bool[D, M] (row d = the
+    spikes bound for shard d); values f64[D, M], any strides.  Returns
+    (idx i32[D, cap] -- column of each packed entry, sentinel M in empty
+    slots; vals f64[D, cap], 0 in empty slots; count i32[D] -- kept per
+    row, may exceed cap so the caller counts the drops)."""
+    if _on_cuda(mask, "spike_compact"):
+        return compact_rows_cuda(mask, values, cap)
+    return ref.compact_rows_ref(mask, values, cap)
 
 
 def select_threshold(score, k, n_iters: int = 48):

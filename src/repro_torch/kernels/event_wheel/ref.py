@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the scheduler kernels (K5 horizon, K6
-compaction, K7 compact-gather, K8 segment rank) and the sort-based
-earliest-K oracle."""
+compaction, K7 compact-gather, K8 segment rank, K9 row compaction) and the
+sort-based earliest-K oracle."""
 from __future__ import annotations
 
 import torch
@@ -70,6 +70,31 @@ def compact_gather_ref(mask, table, cap: int, fill: int):
     rows = table[torch.clamp(ids, max=n - 1).long()]
     rows = torch.where((ids < n)[:, None], rows, fill).to(torch.int32)
     return ids, rows, cnt
+
+
+def compact_rows_ref(mask, values, cap: int):
+    """K9's plain version, the spike-parcel packer: row-wise cumsum ranks
+    and one scatter per row (``repro.kernels.event_wheel.ref
+    .compact_rows_ref``).  mask [D, M] (nonzero = keep); values f64[D, M]
+    (any strides, e.g. one row broadcast to D).  Returns (idx i32[D, cap]
+    -- column of the r-th kept element of each row, sentinel M for empty
+    slots; vals [D, cap] -- its value, 0 in empty slots; count i32[D] --
+    kept per row, may exceed cap).  As in ``compact_ids_ref``, unkept and
+    overflowing columns go to a dump column ``cap`` that is sliced off."""
+    D, M = mask.shape
+    dev = mask.device
+    msk = (mask != 0).to(torch.int32)
+    csum = torch.cumsum(msk, 1, dtype=torch.int32)
+    pos = csum - msk
+    col = torch.where((msk == 1) & (pos < cap), pos, cap).long()
+    idx = torch.full((D, cap + 1), M, dtype=torch.int32, device=dev)
+    idx.scatter_(1, col, torch.arange(M, dtype=torch.int32, device=dev)
+                 .expand(D, M))
+    vals = torch.zeros((D, cap + 1), dtype=values.dtype, device=dev)
+    vals.scatter_(1, col, values.expand(D, M))
+    cnt = csum[:, -1] if M else torch.zeros((D,), dtype=torch.int32,
+                                            device=dev)
+    return idx[:, :cap], vals[:, :cap], cnt
 
 
 def segment_rank_ref(key, max_rank: int):

@@ -73,7 +73,8 @@ def test_kernels_bitwise_equal_to_plain(dev, name):
     assert build.launches() == {"hines_factor": 1, "hines_solve_factored": 1,
                                 "hines_solve": 0, "hh_rhs": 1,
                                 "horizon_score": 1, "compact_ids": 0,
-                                "compact_gather": 0, "segment_rank": 0}
+                                "compact_gather": 0, "segment_rank": 0,
+                                "compact_rows": 0}
 
 
 @pytest.mark.cuda
@@ -177,7 +178,7 @@ def test_active_path_card_equals_cpu_and_dense(dev):
     act = dict(batch="compact", batch_cap=8, fanout="compact", spike_cap=4)
     (a, ra), (b, rb) = go(dev, **act), go(torch.device("cpu"), **act)
     assert all(v > 0 for k, v in build.launches().items()
-               if k != "hines_solve")
+               if k not in ("hines_solve", "compact_rows"))
     assert ra == rb and int(a.rec.count.sum()) > 0
     _eq(a.rec.times, b.rec.times)
     _eq(a.y_final, b.y_final)
@@ -224,3 +225,100 @@ def test_baselines_card_equal_cpu(dev):
     assert la["hines_factor"] == la["hines_solve_factored"] == 0
     assert int(out["cuda", "2c"].solver["nsetups"]) == \
         int(out["cuda", "2c"].solver["nni"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 255, 1024, 4096, 5000])
+def test_row_compaction_kernel_bitwise_equal_to_plain(dev, M):
+    """K9 against its plain version: empty, sparse, half and full rows,
+    caps below and above M, a transposed mask and a broadcast value row
+    (the exchange's strides)."""
+    rng = np.random.default_rng(M)
+    build.reset_launches()
+    calls = 0
+    for D in (1, 4):
+        for cap in (1, 16, 1024, M + 3):
+            for frac in (0.0, 0.05, 0.5, 1.0):
+                m = torch.from_numpy(rng.random((M, D)) < frac).T
+                row = torch.from_numpy(rng.random(M))
+                vals = row[None, :].expand(D, M)
+                got = ew_ops.spike_compact(m.to(dev), row.to(dev)[None, :]
+                                           .expand(D, M), cap)
+                for a, r in zip(got, ew_ref.compact_rows_ref(m, vals, cap)):
+                    _eq(a, r)
+                calls += 1
+    torch.cuda.synchronize()
+    assert build.launches()["compact_rows"] == calls
+
+
+def _spmd_rank(group, transport):
+    """One short SPMD run (N = 32 soma cells, 6 ms) on this rank; the
+    launch counts of every rank."""
+    from repro_torch.distributed.exchange import ExchangeSpec
+    from repro_torch.distributed.fap_spmd import run_fap_spmd
+    model = CellModel(morphology.soma_only(), device=group.device)
+    net = network.make_network(32, k_in=4, seed=3)
+    iinj = 0.16 + 0.004 * np.random.default_rng(1).standard_normal(32)
+    build.reset_launches()
+    res, rounds = run_fap_spmd(model, net, iinj, 6.0, group,
+                               transport=transport,
+                               exchange=ExchangeSpec(parcel_cap=8))
+    counts = torch.tensor([list(build.launches().values())])
+    return res, rounds, group.all_gather(counts, "other"), \
+        list(build.launches())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["sparse", "allgather"])
+def test_spmd_four_ranks_on_one_card_equal_cpu(dev, transport):
+    """Four ranks share cuda:0 over gloo: bitwise the same run as four
+    CPU ranks; every rank launches K1, K2, K4 (and K9 on the sparse
+    transport)."""
+    from repro_torch.distributed.group import launch
+    a, ra, counts, names = launch(4, _spmd_rank, transport, device=dev)
+    b, rb, _, _ = launch(4, _spmd_rank, transport, device="cpu")
+    assert ra == rb and int(a.rec.count.sum()) > 0 and int(a.dropped) == 0
+    _eq(a.rec.times, b.rec.times)
+    _eq(a.y_final, b.y_final)
+    assert int(a.n_steps) == int(b.n_steps)
+    per_rank = dict(zip(names, counts.T.tolist()))
+    need = ["hines_factor", "hines_solve_factored", "hh_rhs"] + \
+        (["compact_rows"] if transport == "sparse" else [])
+    for k in need:
+        assert min(per_rank[k]) > 0, k
+
+
+
+def _gloo_collectives(group):
+    """Each collective of the transports, on this rank's device, in every
+    dtype the transports hand it; the results and the devices they are on."""
+    r, w, d = group.rank, group.world, group.device
+    out = {}
+    for dt in (torch.float64, torch.int32, torch.bool):
+        out["all_gather", dt] = group.all_gather(
+            ((torch.arange(3) + 10 * r) % 4).to(dt).to(d), "a")
+    for dt in (torch.float64, torch.int32):
+        out["all_to_all", dt] = group.all_to_all(
+            (torch.arange(w * 2).reshape(w, 2) + 100 * r).to(dt).to(d), "b")
+    for dt in (torch.float64, torch.int64, torch.int32):
+        for op in ("sum", "min", "max"):
+            out[op, dt] = group.all_reduce(
+                torch.tensor([r, -r], dtype=dt, device=d), op, "c")
+    return {k: (v.device.type, v.cpu()) for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_gloo_takes_card_tensors_for_every_transport_collective(dev):
+    """Four ranks on cuda:0 over gloo: all-gather, the row all-to-all and
+    all-reduce sum/min/max take card tensors and return them on the card,
+    with the values four CPU ranks get."""
+    from repro_torch.distributed.group import launch
+    card = launch(4, _gloo_collectives, device=dev)
+    cpu = launch(4, _gloo_collectives, device="cpu")
+    assert card.keys() == cpu.keys()
+    for k, (where, v) in card.items():
+        assert where == "cuda" and cpu[k][0] == "cpu", k
+        assert v.dtype == cpu[k][1].dtype and torch.equal(v, cpu[k][1]), k
+    assert card["all_to_all", torch.int32][1][:, 0].tolist() == \
+        [0, 100, 200, 300]
+    assert card["max", torch.int32][1].tolist() == [3, 0]

@@ -6,9 +6,10 @@
   rather than running on the CPU.
 * A CUDA tensor handed to a kernel dispatcher launches the kernel or
   raises; it never falls back to the plain version.
-* The neuron core rounds alike on the CPU and the card: no library
-  transcendental or reduction whose last bit differs by device, and no
-  division by a constant (``repro_torch/core/detmath.py``).
+* The neuron core and the SPMD round's step path (``distributed/
+  {fap_spmd,exchange,group}.py``) round alike on the CPU and the card: no
+  library transcendental or reduction whose last bit differs by device,
+  and no division by a constant (``repro_torch/core/detmath.py``).
 """
 import ast
 from pathlib import Path
@@ -20,6 +21,7 @@ from repro_torch import resolve_device
 from repro_torch.core import (calibrate, exec_bsp, exec_fap, fixed_step,
                               morphology, network)
 from repro_torch.core.cell import CellModel
+from repro_torch.distributed import fap_spmd, group
 from repro_torch.kernels.event_wheel import ops as ew_ops
 from repro_torch.kernels.hh_rhs import ops as hh_ops
 from repro_torch.kernels.hines import ops as hines_ops
@@ -58,7 +60,9 @@ HOST_NUMPY = {"morphology.py", "topology.py", "network.py", "detmath.py"}
 CORE_FILES = [p for p in sorted((ROOT / "src" / "repro_torch" / "core")
                                 .glob("*.py")) if p.name not in HOST_NUMPY] \
     + sorted((ROOT / "src" / "repro_torch" / "sched").glob("*.py")) \
-    + sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ref.py"))
+    + sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ref.py")) \
+    + [ROOT / "src" / "repro_torch" / "distributed" / f
+       for f in ("fap_spmd.py", "exchange.py", "group.py")]
 DEVICE_DEPENDENT = {"exp", "expm1", "log", "pow", "sqrt", "mean", "sum"}
 
 
@@ -111,6 +115,11 @@ def test_default_device_raises_without_cuda(no_cuda):
         fixed_step.run_fixed(model, model.init_state(), 1.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calibrate.threshold_current(model, t_end=1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        group.launch(4, len)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fap_spmd.run_fap_spmd(model, net, 0.1, 1.0,
+                              group.Group(0, 1, "gloo", "cuda"))
 
 
 class _CudaLike:
@@ -138,6 +147,7 @@ def _boom(*_a, **_k):
     (ew_ops, "compact_gather_cuda",
      lambda x: ew_ops.compact_gather(x, None, 4, fill=0)),
     (ew_ops, "segment_rank_cuda", lambda x: ew_ops.segment_rank(x, 4)),
+    (ew_ops, "compact_rows_cuda", lambda x: ew_ops.spike_compact(x, x, 4)),
 ])
 def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
     monkeypatch.setattr(mod, cuda_fn, _boom)
@@ -148,8 +158,8 @@ def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
 def test_cuda_wrappers_reject_cpu_tensors():
     """The CUDA wrappers themselves refuse host tensors before launching."""
     from repro_torch.kernels.event_wheel.event_wheel import (
-        compact_gather_cuda, compact_ids_cuda, horizon_score_cuda,
-        segment_rank_cuda)
+        compact_gather_cuda, compact_ids_cuda, compact_rows_cuda,
+        horizon_score_cuda, segment_rank_cuda)
     from repro_torch.kernels.hh_rhs.hh_rhs import hh_rhs_cuda
     from repro_torch.kernels.hines.hines import (hines_factor_cuda,
                                                  hines_solve_cuda)
@@ -174,6 +184,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
         compact_gather_cuda(mask, torch.zeros((4, 2), dtype=torch.int32), 2, 0)
     with pytest.raises(ValueError):
         segment_rank_cuda(torch.zeros(4, dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        compact_rows_cuda(torch.zeros((2, 4), dtype=torch.bool),
+                          torch.zeros((2, 4), dtype=torch.float64), 2)
 
 
 def test_other_devices_are_refused():
@@ -189,3 +202,5 @@ def test_other_devices_are_refused():
         ew_ops.compact_ids(m, 2)
     with pytest.raises(ValueError):
         ew_ops.segment_rank(m.to(torch.int32), 2)
+    with pytest.raises(ValueError):
+        ew_ops.spike_compact(m[None], m[None].to(torch.float64), 2)
