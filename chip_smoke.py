@@ -58,9 +58,26 @@ Phases, each reported on its own lines:
  14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
      the single-host ``run_fap_vardt(step_budget=8)``, and four card ranks
      == four CPU ranks bitwise (spike trains, steps, final states);
- 15. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
-     full-width rounds of the dense and of the active path (device busy
-     share, busiest kernels).
+ 15. flash attention K10 against its plain version on the card, in bf16
+     and float32, at the serve path's shapes (prefill B=4, S=2048, H=9,
+     Hkv=3, D=64; decode against a 256-slot cache at kv_len 1, 37, 255,
+     256), a ragged and a bidirectional case, and the D=128 heads of
+     deepseek-7b and qwen2-72b; CUDA-event timings of the prefill and a
+     full-cache decode step beside the plain version,
+     ``scaled_dot_product_attention`` (a yardstick only) and the bound;
+ 16. the LM serve path at full width: smollm-135m on the card from a
+     seeded generator, ``lm.prefill`` of 4 x 2048 tokens (K10 once per
+     layer), then ``launch.serve.lm_main`` at its CLI defaults: every
+     request served, no non-finite logits, K10 launched 30 times per
+     decode step; tok/s, ms per step, peak memory;
+ 17. the LM path card against CPU: reduced smollm-135m with the same
+     weights in float32 and bf16 compute, a short serve run whose logits
+     agree within a stated tolerance, the CPU's greedy picks differing
+     from the card's only where its top two logits lie within it;
+ 18. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
+     full-width rounds of the dense and of the active path, and of that
+     many full-width decode steps of the serve path (device busy share,
+     busiest kernels).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
@@ -104,6 +121,7 @@ REPLACES = {
     "compact_gather": "src/repro/kernels/event_wheel/event_wheel.py:176",
     "segment_rank": "src/repro/kernels/event_wheel/event_wheel.py:234",
     "compact_rows": "src/repro/kernels/event_wheel/event_wheel.py:256",
+    "flash_attention": "src/repro/kernels/attention/flash.py:65",
 }
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
@@ -112,12 +130,13 @@ SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "compact_ids": f"{SRC}/compact.cu",
           "compact_gather": f"{SRC}/compact.cu",
           "segment_rank": f"{SRC}/segment_rank.cu",
-          "compact_rows": f"{SRC}/compact.cu"}
+          "compact_rows": f"{SRC}/compact.cu",
+          "flash_attention": f"{SRC}/flash_attention.cu"}
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "hines_solve_kernel",
                "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
                "compact_gather_kernel", "segment_rank_kernel",
-               "compact_rows_kernel")
+               "compact_rows_kernel", "flash_attention_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
@@ -136,6 +155,22 @@ SPMD_RUNS = {
                        horizon="incremental"),
 }
 FULL_STACK_PATH = ("compact_ids", "compact_gather", "segment_rank")
+BF16_FLOPS = 989e12            # H100 SXM bf16 on the tensor cores, dense
+#                                (NVIDIA data sheet)
+LM_ARCH = "smollm-135m"        # the serve CLI's default --arch
+LM_PREFILL = (4, 2048)         # phase 16's prefill: prompts x tokens
+# K10 against its plain version (phase 15), element by element: within
+# 1e-5 * (1 + |want|) for the order of float32 sums and exp, plus, for
+# bf16 inputs, the bound that two bf16 roundings of each p (2**-8 of it
+# each, weighed by |v|) and of a bf16 output allow:
+# 2**-7 * (sum_j (p_j / l) |v_j| + |o|), ``ref.bf16_rounding_bound``.
+ATTN_TOL = 1e-5
+# The LM path, card against CPU (phase 17): logits within 1e-4 in float32
+# compute (sum order); in bf16 compute within 2**-5 of the largest logit
+# (K10 and the CPU's plain version round p alike, but a bf16 rounding of
+# an activation that lands on the other side flips by 2**-8 of it, and
+# such flips compound over the layers and the logit GEMM).
+LM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
 
 
 def say(phase, msg):
@@ -1086,6 +1121,250 @@ def phase_spmd_small(dev, n=256, t_end=5.0):
 
 
 
+# --------------------------------------------------------------- phase 15 --
+def _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D, seed=0):
+    """q, k, v in the model's layouts ([B, S, heads, D]) on the card, handed
+    over as the ``transpose(1, 2)`` views the model passes."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((B, S, h, D), generator=g).to(dev, dtype)
+                 .transpose(1, 2)
+                 for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+
+
+def check_attention(name, got, q, k, v, causal, offset, kv_len):
+    """Holds K10's output ``got`` to the plain version on the same inputs;
+    returns (max abs err, the largest share of its limit an element
+    used)."""
+    from repro_torch.kernels.attention import ref as a_ref
+    want = a_ref.flash_attention_ref(q, k, v, causal, offset, kv_len,
+                                     got.dtype).float()
+    lim = ATTN_TOL * (1 + want.abs())
+    if v.dtype == torch.bfloat16:
+        lim += a_ref.bf16_rounding_bound(q, k, v, causal, offset, kv_len,
+                                         got.dtype)
+    err = (got.float() - want).abs()
+    used = float((err / lim).max())
+    if not bool(torch.isfinite(got).all()) or used > 1.0:
+        raise AssertionError(f"{name}: K10 disagrees with its plain version "
+                             f"(max abs err {float(err.max()):.3e}, "
+                             f"{used:.3f} of the limit)")
+    return float(err.max()), used
+
+
+ATTN_CASES = [  # name, B, H, Hkv, Sq, Skv, D, causal, kv_len
+    ("prefill", 4, 9, 3, 2048, 2048, 64, True, None),
+    ("decode kv_len=1", 4, 9, 3, 1, 256, 64, True, 1),
+    ("decode kv_len=37", 4, 9, 3, 1, 256, 64, True, 37),
+    ("decode kv_len=255", 4, 9, 3, 1, 256, 64, True, 255),
+    ("decode kv_len=256", 4, 9, 3, 1, 256, 64, True, 256),
+    ("ragged Sq=37 Skv=100", 4, 9, 3, 37, 100, 64, True, None),
+    ("bidirectional", 4, 9, 3, 256, 256, 64, False, None),
+    ("deepseek-7b D=128", 1, 32, 32, 2048, 2048, 128, True, None),
+    ("qwen2-72b D=128", 1, 64, 8, 2048, 2048, 128, True, None),
+]
+
+
+def phase_attention(dev):
+    """K10 against its plain version in bf16 and float32 at the serve
+    path's shapes and the larger configs' head shapes; timings of the
+    prefill and of a full-cache decode step beside the plain version and
+    ``scaled_dot_product_attention`` (a yardstick only: the port never
+    calls it)."""
+    from repro_torch.kernels.attention import ops as a_ops
+    from repro_torch.kernels.attention import ref as a_ref
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, H, Hkv, Sq, Skv, D, causal, kv_len in ATTN_CASES:
+            q, k, v = _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D)
+            offset = None if kv_len is None else kv_len - Sq
+            for out_dtype in dict.fromkeys((dtype, torch.float32)):
+                got = a_ops.flash_attention(q, k, v, causal=causal,
+                                            offset=offset, kv_len=kv_len,
+                                            out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                tag = f"{name} {str(dtype)[6:]}->{str(out_dtype)[6:]}"
+                errs[tag] = check_attention(tag, got, q, k, v, causal,
+                                            offset, kv_len)
+                del got
+    for tag, (e, used) in errs.items():
+        say("attention", f"{tag}: max abs err {e:.3e}, {used:.3f} of the "
+            "limit")
+    say("attention", f"K10 agrees with its plain version on {len(errs)} "
+        f"cases (limit {ATTN_TOL} * (1 + |want|), plus for bf16 inputs "
+        "2**-7 * (sum_j (p_j / l) |v_j| + |o| if the output is bf16))")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, B, H, Hkv, Sq, Skv, D, causal, kv_len in (ATTN_CASES[0],
+                                                        ATTN_CASES[4]):
+        q, k, v = _attn_inputs(dev, torch.bfloat16, B, H, Hkv, Sq, Skv, D)
+        kw = dict(causal=causal, offset=None if kv_len is None else
+                  kv_len - Sq, kv_len=kv_len, out_dtype=torch.float32)
+        got = a_ops.flash_attention(q, k, v, **kw)
+        err, _ = check_attention(name, got, q, k, v, causal, kw["offset"],
+                                 kv_len)
+        t = cuda_ms(lambda: a_ops.flash_attention(q, k, v, **kw))
+        tp = cuda_ms(lambda: a_ref.flash_attention_ref(
+            q, k, v, kw["causal"], kw["offset"], kv_len, torch.float32))
+        tl = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal and Sq > 1,
+                                  enable_gqa=True))
+        kv = kv_len or Skv
+        flops = (2 if causal and Sq > 1 else 4) * B * H * Sq * kv * D
+        nbytes = 2 * B * H * Sq * D + 2 * 2 * B * Hkv * kv * D \
+            + 4 * B * H * Sq * D
+        bound, by = bound_ms(nbytes, flops, rate=BF16_FLOPS)
+        say("attention", f"{name} B={B} H={H} Hkv={Hkv} Sq={Sq} kv={kv} "
+            f"D={D} bf16->f32: K10 {t:.4f} ms, plain {tp:.4f} ms, sdpa "
+            f"{tl:.4f} ms, bound {bound:.5f} ms ({by}); "
+            f"{flops / t / 1e9:.1f} TFLOP/s")
+        rows[name] = (err, t, tp, bound, by, tl)
+    return {"flash_attention": rows["prefill"]}, rows
+
+
+# --------------------------------------------------------------- phase 16 --
+def phase_serve(dev, smi):
+    """The full-width serve path: smollm-135m on the card from a seeded
+    generator, a 4 x 2048-token prefill, then ``launch.serve.lm_main`` at
+    its CLI defaults, with the launch counts zeroed just before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device=dev)
+    n_params = sum(p.numel() for p in [params["emb"], params["ln_f"]] +
+                   [w for lp in params["layers"] for w in lp.values()])
+    say("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} params "
+        f"({cfg.param_dtype}, compute {cfg.compute_dtype}), init "
+        f"{time.perf_counter() - t0:.2f} s")
+    B, S = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S),
+                         generator=torch.Generator().manual_seed(1))
+    lm.prefill(cfg, params, {"tokens": toks[:, :64]}, device=dev)  # warm-up
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = lm.prefill(cfg, params, {"tokens": toks}, device=dev)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre_launches = build.launches()["flash_attention"]
+    if tuple(logits.shape) != (B, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are not "
+                             "finite [B, 1, V]")
+    if pre_launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched K10 {pre_launches} times, "
+                             f"not once per layer ({cfg.n_layers})")
+    say("serve", f"prefill {B} x {S} tokens: {t_pre * 1e3:.1f} ms "
+        f"({B * S / t_pre:.0f} tok/s), K10 launches {pre_launches}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, logits
+
+    args = serve.build_parser().parse_args([])
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.lm_main(args)
+    launches = build.launches()
+    steps = res.decode_steps
+    stats = dict(arch=cfg.name, requests=args.requests, slots=args.slots,
+                 max_new=args.max_new, cache_len=args.cache_len,
+                 done=res.done, n_tokens=res.n_tokens, seconds=res.seconds,
+                 decode_steps=steps, prefill_steps=res.prefill_steps,
+                 tok_per_s=res.n_tokens / res.seconds,
+                 ms_per_step=res.seconds / steps * 1e3,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 prefill_ms=t_pre * 1e3, prefill_tokens=B * S, gpu=smi)
+    say("serve", f"lm_main at CLI defaults ({args.requests} requests, "
+        f"{args.slots} slots, max-new {args.max_new}, cache {args.cache_len})"
+        f": served {res.done}, {res.n_tokens} tokens in {res.seconds:.3f} s "
+        f"= {stats['tok_per_s']:.1f} tok/s; {steps} decode steps "
+        f"({res.prefill_steps} of them prefill) at "
+        f"{stats['ms_per_step']:.2f} ms each; peak memory "
+        f"{stats['peak_gib']:.3f} GiB; K10 launches "
+        f"{launches['flash_attention']}; on {smi}")
+    if res.done != args.requests or res.n_tokens <= 0:
+        raise AssertionError(f"served {res.done} of {args.requests} "
+                             f"requests, {res.n_tokens} tokens")
+    if res.nonfinite_steps:
+        raise AssertionError(f"{res.nonfinite_steps} decode steps gave "
+                             "non-finite logits")
+    if launches["flash_attention"] != steps * cfg.n_layers:
+        raise AssertionError(f"K10 launched {launches['flash_attention']} "
+                             f"times, not {steps} steps x {cfg.n_layers}")
+    return launches["flash_attention"], stats
+
+
+# --------------------------------------------------------------- phase 17 --
+def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
+    """Reduced smollm-135m with the same weights, card (K10) against CPU
+    (plain versions), in float32 and in bf16 compute: a short serve run on
+    the card records its logits and picks; the CPU run replays the card's
+    picks (so both runs follow one token path) and checks its own logits
+    and its own greedy picks against them.  Where the CPU's greedy pick
+    differs from the card's, the CPU's top two logits must lie within the
+    tolerance; the phase counts those picks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    out = {}
+    for cd in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
+                                  compute_dtype=cd)
+        queue = serve.make_queue(cfg, requests, 0)
+        seen = []
+
+        def record(logits):
+            seen.append(logits.cpu())
+            return serve.greedy(logits)
+
+        card = serve.serve_requests(cfg, lm.init_params(cfg, 0, device=dev),
+                                    queue, slots, max_new, cache_len,
+                                    device=dev, pick=record)
+        tol = LM_TOL[cd] * (1.0 if cd == "float32" else
+                            max(float(x.abs().max()) for x in seen))
+        steps = iter(seen)
+        worst, differ = 0.0, 0
+
+        def replay(logits):
+            nonlocal worst, differ
+            theirs = next(steps)
+            worst = max(worst, float((theirs - logits).abs().max()))
+            if worst > tol:
+                raise AssertionError(f"{cd}: card and CPU decode logits "
+                                     f"differ by {worst:.3e} > {tol:.3e}")
+            pick = serve.greedy(theirs)
+            for b in np.flatnonzero(pick != serve.greedy(logits)):
+                top2 = torch.topk(logits[b], 2).values
+                if float(top2[0] - top2[1]) > tol:
+                    raise AssertionError(f"{cd}: card picked {pick[b]}, the "
+                                         f"CPU's top logit leads by "
+                                         f"{float(top2[0] - top2[1]):.3e}")
+                differ += 1
+            return pick
+
+        cpu = serve.serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
+                                   queue, slots, max_new, cache_len,
+                                   device="cpu", pick=replay)
+        if next(steps, None) is not None or card.done != requests or \
+                card.nonfinite_steps or cpu.nonfinite_steps:
+            raise AssertionError(f"{cd}: the card and CPU runs diverged")
+        out[cd] = dict(steps=card.decode_steps, max_abs_err=worst, tol=tol,
+                       picks_differed=differ, picks=len(seen) * slots)
+        say("lm-vs-cpu", f"reduced {LM_ARCH} compute {cd}: {requests} "
+            f"requests, {card.decode_steps} decode steps, logits max abs err "
+            f"{worst:.3e} (tol {tol:.3e}); CPU greedy picks differed from "
+            f"the card's on {differ} of {len(seen) * slots}, each within "
+            f"the tolerance of a top-2 tie")
+    return out
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -1124,6 +1403,41 @@ def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
             f"{e.self_device_time_total / n_rounds / 1e3:8.3f} ms/round")
 
 
+def phase_profile_serve(dev, n_steps, t_pos=128):
+    """Where a full-width decode step's time goes: ``torch.profiler`` over
+    ``n_steps`` decode steps of smollm-135m at the serve CLI's batch and
+    cache, from ``t_pos`` on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(LM_ARCH)
+    params = lm.init_params(cfg, 0, device=dev)
+    state = lm.make_decode_state(cfg, 4, 256, device=dev)
+    tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    for t in range(t_pos):
+        _, state = lm.decode_step(cfg, params, tok, state, t, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(t_pos, t_pos + n_steps):
+            _, state = lm.decode_step(cfg, params, tok, state, t, device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    timed = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    ev = [e for e in timed if str(e.device_type).endswith("CUDA")] or timed
+    dev_us = sum(e.self_device_time_total for e in ev)
+    say("profile", f"serve decode steps {t_pos}..{t_pos + n_steps - 1}: "
+        f"wall {wall_us / n_steps / 1e3:.2f} ms per step (profiled), device "
+        f"{dev_us / n_steps / 1e3:.3f} ms per step, busy share "
+        f"{dev_us / wall_us:.3f}, "
+        f"{sum(e.count for e in ev) / n_steps:.0f} device ops per step")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+        say("profile", f"  {e.key[:60]:60s} {e.count / n_steps:8.0f}/step "
+            f"{e.self_device_time_total / n_steps / 1e3:8.3f} ms/step")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--t-end", type=float, default=12.0,
@@ -1154,11 +1468,16 @@ def main(argv=None):
                                                            main_stats)
     rows.update(phase_parcel_kernel(dev, path_mask))
     phase_spmd_small(dev)
+    k10_row, attn_rows = phase_attention(dev)
+    rows.update(k10_row)
+    launches["flash_attention"], lm_stats = phase_serve(dev, smi)
+    lm_vs_cpu = phase_lm_card_vs_cpu(dev)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
                       wheel="auto", **dict(ACTIVE, batch_cap=act["batch_cap"],
                                            spike_cap=act["spike_cap"]))
+        phase_profile_serve(dev, args.profile)
     launches.update({k: act_launches[k] for k in ACTIVE_PATH
                      if k not in DENSE_PATH})
     launches.update({k: base_launches[k] for k in BASELINE_PATH})
@@ -1179,7 +1498,9 @@ def main(argv=None):
             {"gpu": smi, "kernels": kernels, "main": main_stats,
              "active": act, "active_launches": act_launches,
              "baseline_2a": base, "baseline_2a_launches": base_launches,
-             "other_baselines": others, "spmd": spmd}, indent=1))
+             "other_baselines": others, "spmd": spmd,
+             "attention": attn_rows, "serve": lm_stats,
+             "lm_card_vs_cpu": lm_vs_cpu}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ horizon of the compact runner's carry -- handed over as NamedTuples (or
 any object with those fields) of numpy arrays -- into the port's tensors,
 and
 the port's back into dicts of numpy arrays that rebuild the JAX
-NamedTuples with ``Cls(**d)``.  Nothing here imports the JAX package: the
+NamedTuples with ``Cls(**d)``.  ``lm_params_from_numpy`` carries an LM's
+parameter tree across.  Nothing here imports the JAX package: the
 caller does the ``np.asarray`` on its side.
 
 The JAX ``BDFState`` of a vmapped network already carries the leading
@@ -118,3 +119,22 @@ def spike_record_from_numpy(rec, device) -> SpikeRecord:
 
 def spike_record_to_numpy(rec: SpikeRecord) -> dict:
     return {k: _numpy(v) for k, v in rec._asdict().items()}
+
+
+def lm_params_from_numpy(cfg, params, device) -> dict:
+    """The JAX package's dense/vlm parameter tree (numpy arrays: ``emb``,
+    ``ln_f``, optional ``patch_proj``, and ``layers`` stacked ``[L, ...]``)
+    -> the port's parameters: the same ``[in, out]`` layout, one dict per
+    layer, in ``cfg``'s parameter dtype."""
+    dt = cfg.pdtype()
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device).to(dt)
+
+    layers = {k: np.asarray(v) for k, v in params["layers"].items()}
+    out = {"emb": tensor(params["emb"]), "ln_f": tensor(params["ln_f"]),
+           "layers": [{k: tensor(v[i]) for k, v in layers.items()}
+                      for i in range(cfg.n_layers)]}
+    if "patch_proj" in params:
+        out["patch_proj"] = tensor(params["patch_proj"])
+    return out

@@ -15,4 +15,6 @@ Kernels (sources in ``repro_torch/csrc``, built by ``kernels/build.py``):
                 + table-row gather                   (csrc/compact.cu)
                 K8 segment ranking                   (csrc/segment_rank.cu)
                 K9 row-wise parcel compaction        (csrc/compact.cu)
+  attention   - K10 flash attention, causal/bidirectional
+                GQA with a decode offset           (csrc/flash_attention.cu)
 """

@@ -8,7 +8,9 @@ an edited source is rebuilt and a stale library is never loaded.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into fused
 multiply-adds: the neuron core is float64 and each kernel must keep the
-float operation order of its plain PyTorch version.
+float operation order of its plain PyTorch version.  Flash attention (K10)
+is held to a tolerance instead and writes its fused multiply-adds out
+(``fmaf``).
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises when
 it is not 0.  Each wrapper adds one to its launch counter (``count``)
@@ -27,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("hines", "hh_rhs", "horizon", "compact", "segment_rank")
+SOURCES = ("hines", "hh_rhs", "horizon", "compact", "segment_rank",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -36,7 +39,8 @@ _LIBS: dict = {}
 _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
             "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
-            "compact_gather": 0, "segment_rank": 0, "compact_rows": 0}
+            "compact_gather": 0, "segment_rank": 0, "compact_rows": 0,
+            "flash_attention": 0}
 
 
 def nvcc_path() -> str:

@@ -1,0 +1,160 @@
+"""Llama-family decoder-only transformer with GQA (+ optional QKV bias),
+RMSNorm, RoPE and SwiGLU -- covers deepseek-7b, qwen2-72b, internlm2-20b,
+smollm-135m and the internvl2-1b language backbone.
+
+Parameters are a plain dict in the JAX package's layout, weights ``[in,
+out]``: ``emb [V, d]``, ``ln_f``, optional ``patch_proj``, and
+``layers``, a list of one dict per layer (``ln1, wq, wk, wv, wo, ln2,
+w_gate, w_up, w_down`` and ``bq, bk, bv`` with ``qkv_bias``) -- the JAX
+package stacks them ``[L, ...]`` and scans; here the scan is a Python
+loop.  Attention is flash attention (K10) on the card.
+
+``decode_step`` writes each layer's new k/v into the cache at ``t_pos``
+in place (the JAX version returns an updated copy); a caller that needs
+the old cache clones it first.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+
+
+def init_layer_params(cfg: ArchConfig, gen, device="cpu") -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    H, Hkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    dt = cfg.pdtype()
+
+    def dense(d_in, d_out):
+        return cm.dense_init(gen, d_in, d_out, dt, device=device)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dt, device=device)
+
+    p = {"ln1": ones(d), "wq": dense(d, H * hd), "wk": dense(d, Hkv * hd),
+         "wv": dense(d, Hkv * hd), "wo": dense(H * hd, d), "ln2": ones(d),
+         "w_gate": dense(d, ff), "w_up": dense(d, ff), "w_down": dense(ff, d)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
+            p[name] = torch.zeros((n,), dtype=dt, device=device)
+    return p
+
+
+def init_params(cfg: ArchConfig, gen, device="cpu") -> dict:
+    """Random parameters at ``cfg``'s shapes, drawn from ``gen`` (a CPU
+    ``torch.Generator``)."""
+    params = {
+        "emb": cm.dense_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype(),
+                             scale=0.02, device=device),
+        "layers": [init_layer_params(cfg, gen, device)
+                   for _ in range(cfg.n_layers)],
+        "ln_f": torch.ones((cfg.d_model,), dtype=cfg.pdtype(), device=device),
+    }
+    if cfg.n_patches:
+        params["patch_proj"] = cm.dense_init(gen, cfg.d_model, cfg.d_model,
+                                             cfg.pdtype(), device=device)
+    return params
+
+
+def _qkv(cfg: ArchConfig, lp, x):
+    cd = cfg.cdtype()
+    q = cm.mm(x, lp["wq"], cd)
+    k = cm.mm(x, lp["wk"], cd)
+    v = cm.mm(x, lp["wv"], cd)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(torch.float32)
+        k = k + lp["bk"].to(torch.float32)
+        v = v + lp["bv"].to(torch.float32)
+    B, S, _ = x.shape
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _mlp(cfg: ArchConfig, lp, x):
+    cd = cfg.cdtype()
+    h = cm.swiglu(cm.mm(x, lp["w_gate"], cd), cm.mm(x, lp["w_up"], cd))
+    return cm.mm(h, lp["w_down"], cd)
+
+
+def layer_forward(cfg: ArchConfig, lp, x, cos, sin):
+    """Full-sequence causal layer (prefill).  x: [B, S, d] float32.
+    Returns (x', (k, v)) with k/v for cache construction."""
+    h = cm.rms_norm(x, lp["ln1"])
+    q, k, v = _qkv(cfg, lp, h)
+    q = cm.apply_rope(q, cos, sin)
+    k = cm.apply_rope(k, cos, sin)
+    o = attn.chunked_causal_attention(q, k, v, compute_dtype=cfg.cdtype())
+    B, S, _, _ = o.shape
+    x = x + cm.mm(o.reshape(B, S, -1), lp["wo"], cfg.cdtype())
+    h = cm.rms_norm(x, lp["ln2"])
+    x = x + _mlp(cfg, lp, h)
+    return x, (k, v)
+
+
+def layer_decode(cfg: ArchConfig, lp, x, kc, vc, t_pos, cos, sin):
+    """One-token decode.  x: [B, 1, d]; kc/vc: [B, S, Hkv, hd] caches,
+    written at ``t_pos`` in place."""
+    h = cm.rms_norm(x, lp["ln1"])
+    q, k, v = _qkv(cfg, lp, h)
+    q = cm.apply_rope(q, cos, sin)
+    k = cm.apply_rope(k, cos, sin)
+    kc[:, t_pos:t_pos + 1] = k.to(kc.dtype)
+    vc[:, t_pos:t_pos + 1] = v.to(vc.dtype)
+    o = attn.decode_attention(q, kc, vc, t_pos + 1, cfg.cdtype())
+    B = x.shape[0]
+    x = x + cm.mm(o.reshape(B, 1, -1), lp["wo"], cfg.cdtype())
+    h = cm.rms_norm(x, lp["ln2"])
+    x = x + _mlp(cfg, lp, h)
+    return x, kc, vc
+
+
+def embed_tokens(cfg: ArchConfig, params, tokens):
+    return params["emb"][tokens].to(torch.float32)
+
+
+def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
+            return_cache: bool = False):
+    """Full-sequence forward.  tokens: [B, S] (plus optional VLM patch
+    embeddings [B, P, d] prepended).  Returns (hidden [B, S_tot, d],
+    (k, v) stacked [L, B, S_tot, Hkv, hd] | None, aux_loss) -- the JAX
+    layout; aux_loss is 0 here, since only MoE layers add to it."""
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.n_patches and patch_embeds is not None:
+        pe = cm.mm(patch_embeds.to(torch.float32), params["patch_proj"],
+                   cfg.cdtype())
+        x = torch.cat([pe, x], dim=1)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    cos, sin = cm.rope_tables(pos, cfg.hd, cfg.rope_theta)
+    ks, vs = [], []
+    for lp in params["layers"]:
+        x, (k, v) = layer_forward(cfg, lp, x, cos, sin)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    x = cm.rms_norm(x, params["ln_f"])
+    caches = (torch.stack(ks), torch.stack(vs)) if return_cache else None
+    return x, caches, torch.zeros((), device=x.device)
+
+
+def decode_step(cfg: ArchConfig, params, token, cache, t_pos):
+    """token: [B, 1] int; cache: dict(k=[L,B,S,Hkv,hd], v=...), updated in
+    place at ``t_pos``.  One step; returns (logits [B, 1, V], cache)."""
+    x = embed_tokens(cfg, params, token)
+    pos = torch.full((1,), int(t_pos), device=x.device)
+    cos, sin = cm.rope_tables(pos, cfg.hd, cfg.rope_theta)
+    for lp, kc, vc in zip(params["layers"], cache["k"], cache["v"]):
+        x, _, _ = layer_decode(cfg, lp, x, kc, vc, t_pos, cos, sin)
+    x = cm.rms_norm(x, params["ln_f"])
+    logits = cm.mm(x, params["emb"].T, cfg.cdtype())
+    return logits, cache
+
+
+def make_cache(cfg: ArchConfig, batch, seq_len, device="cpu"):
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.cdtype(), device=device),
+            "v": torch.zeros(shape, dtype=cfg.cdtype(), device=device)}

@@ -5,9 +5,10 @@ Needs no JAX (the card's machine has none); every test skips without a
 CUDA device.  Run there with ``PYTHONPATH=src python -m pytest
 --noconftest -m cuda tests/test_torch_cuda.py`` (the suite's conftest
 imports JAX).
-The arithmetic is the same on the card as in the plain versions
-(``repro_torch/core/detmath.py``, ``-fmad=false``), so every comparison is
-bitwise.
+The arithmetic of the neuron core is the same on the card as in the plain
+versions (``repro_torch/core/detmath.py``, ``-fmad=false``), so those
+comparisons are bitwise.  Flash attention (K10) and the LM path are held
+to stated tolerances instead (``K10_TOL``, ``LM_TOL``).
 """
 import numpy as np
 import pytest
@@ -74,7 +75,7 @@ def test_kernels_bitwise_equal_to_plain(dev, name):
                                 "hines_solve": 0, "hh_rhs": 1,
                                 "horizon_score": 1, "compact_ids": 0,
                                 "compact_gather": 0, "segment_rank": 0,
-                                "compact_rows": 0}
+                                "compact_rows": 0, "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -322,3 +323,90 @@ def test_gloo_takes_card_tensors_for_every_transport_collective(dev):
     assert card["all_to_all", torch.int32][1][:, 0].tolist() == \
         [0, 100, 200, 300]
     assert card["max", torch.int32][1].tolist() == [3, 0]
+
+
+# K10 against its plain version on the same card tensors: within 1e-5
+# absolute and relative for the order of float32 sums and the exp, plus,
+# for bf16 inputs, the bound two bf16 roundings of each p (and of a bf16
+# output) allow, element by element (``ref.bf16_rounding_bound``).
+K10_TOL = 1e-5
+
+
+def _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, D), generator=g).to(dtype).to(dev)
+               .transpose(1, 2) for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,kv_len", [
+    (2, 9, 3, 300, 300, 64, True, None),        # prefill, ragged tile
+    (4, 9, 3, 1, 256, 64, True, 1),             # decode, first step
+    (4, 9, 3, 1, 256, 64, True, 37),
+    (4, 9, 3, 1, 256, 64, True, 256),
+    (2, 6, 3, 37, 100, 16, True, None),         # ragged + GQA
+    (1, 4, 2, 64, 64, 16, False, None),         # bidirectional
+    (1, 8, 8, 200, 200, 128, True, None),       # D = 128
+    (1, 4, 2, 8, 100, 128, False, 77),          # masked kv tail
+])
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
+                                              D, causal, kv_len):
+    from repro_torch.kernels.attention import ops as a_ops
+    from repro_torch.kernels.attention import ref as a_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D)
+    offset = None if kv_len is None else kv_len - Sq
+    build.reset_launches()
+    for out_dtype in {dtype, torch.float32}:
+        got = a_ops.flash_attention(q, k, v, causal=causal, offset=offset,
+                                    kv_len=kv_len, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = a_ref.flash_attention_ref(q, k, v, causal, offset, kv_len,
+                                         out_dtype).float()
+        assert got.dtype == out_dtype and got.shape == (B, H, Sq, D)
+        lim = K10_TOL * (1 + want.abs())
+        if dtype == torch.bfloat16:
+            lim += a_ref.bf16_rounding_bound(q, k, v, causal, offset, kv_len,
+                                             out_dtype)
+        assert bool(((got.float() - want).abs() <= lim).all())
+    assert build.launches()["flash_attention"] == (1 if dtype ==
+                                                   torch.float32 else 2)
+
+
+LM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_lm_path_card_matches_cpu(dev, compute_dtype):
+    """Reduced smollm-135m with the same weights: prefill logits and a few
+    decode steps' logits, card (K10) against CPU (plain), within 1e-4
+    (float32) or 2**-5 of the logit scale (bf16 compute, where one flip
+    of a bf16 rounding moves an activation by 2**-8 of itself)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              compute_dtype=compute_dtype)
+    cpu = lm.init_params(cfg, 0, device="cpu")
+    card = lm.init_params(cfg, 0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    build.reset_launches()
+    got = lm.prefill(cfg, card, {"tokens": toks}, device=dev)
+    assert build.launches()["flash_attention"] == cfg.n_layers
+    want = lm.prefill(cfg, cpu, {"tokens": toks}, device="cpu")
+    tol = LM_TOL[compute_dtype] * (1.0 if compute_dtype == "float32"
+                                   else float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+    sc = lm.make_decode_state(cfg, 2, 16, device="cpu")
+    sg = lm.make_decode_state(cfg, 2, 16, device=dev)
+    for t in range(12):
+        lc, sc = lm.decode_step(cfg, cpu, toks[:, t:t + 1], sc, t,
+                                device="cpu")
+        lg, sg = lm.decode_step(cfg, card, toks[:, t:t + 1], sg, t,
+                                device=dev)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=tol)

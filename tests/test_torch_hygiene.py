@@ -6,6 +6,9 @@
   rather than running on the CPU.
 * A CUDA tensor handed to a kernel dispatcher launches the kernel or
   raises; it never falls back to the plain version.
+* The LM modules (``models/``, ``kernels/attention``) compute in bf16 and
+  are held to tolerances, not to card == CPU bitwise equality, so the
+  rounding rule below leaves them out.
 * The neuron core and the SPMD round's step path (``distributed/
   {fap_spmd,exchange,group}.py``) round alike on the CPU and the card: no
   library transcendental or reduction whose last bit differs by device,
@@ -18,13 +21,17 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config
 from repro_torch.core import (calibrate, exec_bsp, exec_fap, fixed_step,
                               morphology, network)
 from repro_torch.core.cell import CellModel
 from repro_torch.distributed import fap_spmd, group
+from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.event_wheel import ops as ew_ops
 from repro_torch.kernels.hh_rhs import ops as hh_ops
 from repro_torch.kernels.hines import ops as hines_ops
+from repro_torch.launch import serve
+from repro_torch.models import lm
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -50,7 +57,7 @@ def test_port_never_imports_jax_or_reference(path):
 
 
 def test_dispatchers_have_no_fallback_path():
-    assert len(OPS_FILES) == 3
+    assert len(OPS_FILES) == 4
     for path in OPS_FILES:
         tree = ast.parse(path.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
@@ -60,7 +67,8 @@ HOST_NUMPY = {"morphology.py", "topology.py", "network.py", "detmath.py"}
 CORE_FILES = [p for p in sorted((ROOT / "src" / "repro_torch" / "core")
                                 .glob("*.py")) if p.name not in HOST_NUMPY] \
     + sorted((ROOT / "src" / "repro_torch" / "sched").glob("*.py")) \
-    + sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ref.py")) \
+    + [p for p in sorted((ROOT / "src" / "repro_torch" / "kernels")
+                         .glob("*/ref.py")) if p.parent.name != "attention"] \
     + [ROOT / "src" / "repro_torch" / "distributed" / f
        for f in ("fap_spmd.py", "exchange.py", "group.py")]
 DEVICE_DEPENDENT = {"exp", "expm1", "log", "pow", "sqrt", "mean", "sum"}
@@ -122,6 +130,22 @@ def test_default_device_raises_without_cuda(no_cuda):
                               group.Group(0, 1, "gloo", "cuda"))
 
 
+def test_lm_entry_points_default_to_the_card(no_cuda):
+    cfg = get_config("smollm-135m").reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+    state = lm.make_decode_state(cfg, 1, 8, device="cpu")
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    for call in (lambda: lm.init_params(cfg, 0),
+                 lambda: lm.make_decode_state(cfg, 1, 8),
+                 lambda: lm.decode_step(cfg, params, tok, state, 0),
+                 lambda: lm.forward_hidden(cfg, params, {"tokens": tok}),
+                 lambda: lm.prefill(cfg, params, {"tokens": tok}),
+                 lambda: serve.serve_requests(cfg, params, [], 1, 2, 8),
+                 lambda: serve.main(["--reduced", "--requests", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 class _CudaLike:
     """Stands in for a CUDA tensor on a machine without a card."""
     device = torch.device("cuda")
@@ -148,6 +172,8 @@ def _boom(*_a, **_k):
      lambda x: ew_ops.compact_gather(x, None, 4, fill=0)),
     (ew_ops, "segment_rank_cuda", lambda x: ew_ops.segment_rank(x, 4)),
     (ew_ops, "compact_rows_cuda", lambda x: ew_ops.spike_compact(x, x, 4)),
+    (attn_ops, "flash_attention_cuda",
+     lambda x: attn_ops.flash_attention(x, x, x)),
 ])
 def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
     monkeypatch.setattr(mod, cuda_fn, _boom)
@@ -187,6 +213,16 @@ def test_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError):
         compact_rows_cuda(torch.zeros((2, 4), dtype=torch.bool),
                           torch.zeros((2, 4), dtype=torch.float64), 2)
+
+
+def test_flash_attention_wrapper_refuses_what_it_cannot_take():
+    from repro_torch.kernels.attention.flash import flash_attention_cuda
+    q = torch.zeros((1, 2, 4, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, q, q)
+    m = torch.zeros((1, 2, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(m, m, m)
 
 
 def test_other_devices_are_refused():
