@@ -8,8 +8,10 @@ Phases, each reported on its own lines:
      ninja, and the parallel nvcc build of every kernel source;
   2. the per-step and horizon kernels against their plain PyTorch versions
      on the card, at the main path's shapes (K1/K2/K4 at N=16384 with C=13
-     and C=1, K5 at K=16), with CUDA-event timings (median of 25 runs) and
-     each kernel's bound;
+     and C=1, K5 at K=16), with each kernel's time per call (CUDA events
+     around each of 25 calls, median: the wrapper's host work included),
+     its device time (events around the replay of a CUDA graph of 50
+     launches; phases 5, 8, 13 and 15 time alike) and its bound;
   3. the dense main path at full width: ``make_fap_vardt_runner`` on the
      branched cell (C=13), 16384 neurons with 16 synapses each,
      regime-mixed currents, ``horizon_impl="fused"`` -- with the kernels'
@@ -58,22 +60,27 @@ Phases, each reported on its own lines:
  14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
      the single-host ``run_fap_vardt(step_budget=8)``, and four card ranks
      == four CPU ranks bitwise (spike trains, steps, final states);
- 15. flash attention K10 against its plain version on the card, in bf16
-     and float32, at the serve path's shapes (prefill B=4, S=2048, H=9,
-     Hkv=3, D=64; decode against a 256-slot cache at kv_len 1, 37, 255,
-     256), a ragged and a bidirectional case, and the D=128 heads of
-     deepseek-7b and qwen2-72b; CUDA-event timings of the prefill and a
-     full-cache decode step beside the plain version,
+ 15. flash attention K10's three kernels against their plain version on
+     the card, bf16 (bf16 and float32 out) and float32, each case checking
+     which kernel ran: the serve path's shapes (prefill B=4, S=2048, H=9,
+     Hkv=3, D=64; decode at kv_len 1, 37, 255, 256, 2048 and 4096), decode
+     with several query rows, ragged Sq and Skv, bidirectional, groups 1,
+     3 and 8, D 16/64/128 (deepseek-7b's and qwen2-72b's heads); times of
+     the prefill and of decode at kv_len 256 and 4096 (bf16 in), and of
+     the float32 kernel at the prefill, beside the plain version,
      ``scaled_dot_product_attention`` (a yardstick only) and the bound;
+     the decode kernel's device time by kv splits;
  16. the LM serve path at full width: smollm-135m on the card from a
      seeded generator, ``lm.prefill`` of 4 x 2048 tokens (K10 once per
-     layer), then ``launch.serve.lm_main`` at its CLI defaults: every
-     request served, no non-finite logits, K10 launched 30 times per
-     decode step; tok/s, ms per step, peak memory;
+     layer, all by the prefill kernel), then ``launch.serve.lm_main`` at
+     its CLI defaults: every request served, no non-finite logits, K10
+     launched 30 times per decode step, all by the decode kernel; tok/s,
+     ms per step, peak memory;
  17. the LM path card against CPU: reduced smollm-135m with the same
-     weights in float32 and bf16 compute, a short serve run whose logits
-     agree within a stated tolerance, the CPU's greedy picks differing
-     from the card's only where its top two logits lie within it;
+     weights in float32 (K10's float32 kernel) and bf16 compute (its
+     decode kernel), a short serve run whose logits agree within a stated
+     tolerance, the CPU's greedy picks differing from the card's only
+     where its top two logits lie within it;
  18. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path (device busy share,
@@ -121,7 +128,9 @@ REPLACES = {
     "compact_gather": "src/repro/kernels/event_wheel/event_wheel.py:176",
     "segment_rank": "src/repro/kernels/event_wheel/event_wheel.py:234",
     "compact_rows": "src/repro/kernels/event_wheel/event_wheel.py:256",
-    "flash_attention": "src/repro/kernels/attention/flash.py:65",
+    "flash_attention_f32": "src/repro/kernels/attention/flash.py:65",
+    "flash_attention_prefill": "src/repro/kernels/attention/flash.py:65",
+    "flash_attention_decode": "src/repro/kernels/attention/flash.py:65",
 }
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
@@ -131,12 +140,20 @@ SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "compact_gather": f"{SRC}/compact.cu",
           "segment_rank": f"{SRC}/segment_rank.cu",
           "compact_rows": f"{SRC}/compact.cu",
-          "flash_attention": f"{SRC}/flash_attention.cu"}
+          "flash_attention_f32": f"{SRC}/flash_attention.cu",
+          "flash_attention_prefill": f"{SRC}/flash_prefill.cu",
+          "flash_attention_decode": f"{SRC}/flash_decode.cu"}
+K10_KERNELS = ("flash_attention_f32", "flash_attention_prefill",
+               "flash_attention_decode")
+ROW_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "hines_solve_kernel",
                "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
                "compact_gather_kernel", "segment_rank_kernel",
-               "compact_rows_kernel", "flash_attention_kernel")
+               "compact_rows_kernel", "flash_attention_kernel",
+               "flash_prefill_kernel", "flash_decode_kernel",
+               "flash_decode_merge_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
@@ -202,6 +219,76 @@ def cuda_ms(fn, reps=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, launches=50, reps=5):
+    """Device time of one call: CUDA events around the replay of a CUDA
+    graph of ``launches`` calls captured on the current stream (median of
+    ``reps`` replays), so the wrapper's host work is not in the figure."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def profiled_device_ms(fn, calls=20):
+    """Device time of one call of a function that a CUDA graph cannot
+    capture, because it waits for the card (``torch.nonzero``'s count,
+    ``torch.linalg.solve``'s error check): ``torch.profiler``'s summed
+    device time of the kernels it runs, over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / calls / 1e3
+
+
+def kernel_row(err, fn, plain, nbytes, ops, rate=FP64_FLOPS, library=None,
+               library_syncs=False):
+    """A kernel's line of the ``kernels`` table: its error against the
+    plain version, per-call and device times, the plain version's and the
+    library call's times, and the bound of ``nbytes`` and ``ops``."""
+    bound, by = bound_ms(nbytes, ops, rate)
+    row = dict(max_abs_err=err, ms=cuda_ms(fn), device_ms=device_ms(fn),
+               plain_ms=cuda_ms(plain), bound_ms=bound, bound_by=by,
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        row["library_ms"] = cuda_ms(library)
+        row["library_device_ms"] = (profiled_device_ms if library_syncs
+                                    else device_ms)(library)
+    return row
+
+
+def fmt_row(row):
+    lib = "" if row["library_ms"] is None else (
+        f", library {row['library_ms']:.4f} ms (device "
+        f"{row['library_device_ms']:.5f})")
+    return (f"{row['ms']:.4f} ms per call, device {row['device_ms']:.5f} ms, "
+            f"plain {row['plain_ms']:.4f} ms{lib}, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
 
 
 def check_close(name, got, ref, exact=False):
@@ -298,26 +385,27 @@ def phase_kernels(dev):
         outs = hh_ops.hh_rhs(p.area, v, m, h, n)
         e4 = max(check_close(f"hh_rhs[{i}] C={C}", o, r) for i, (o, r) in
                  enumerate(zip(outs, hh_ref.hh_rhs_ref(p.area, v, m, h, n))))
-        t1 = cuda_ms(lambda: h_ops.hines_factor(p.parent, p.g_axial, dT))
-        t1p = cuda_ms(lambda: h_ref.hines_factor_ref(p.parent, p.g_axial, dT))
-        t2 = cuda_ms(lambda: h_ops.hines_solve_factored(p.parent, p.g_axial,
-                                                        deT, b.T))
-        t2p = cuda_ms(lambda: h_ref.hines_solve_factored_ref(
-            p.parent, p.g_axial, deT, b.T))
-        t4 = cuda_ms(lambda: hh_ops.hh_rhs(p.area, v, m, h, n))
-        t4p = cuda_ms(lambda: hh_ref.hh_rhs_ref(p.area, v, m, h, n))
-        say("kernels", f"C={C} N={N}: hines_factor {t1:.4f} ms (plain "
-            f"{t1p:.4f}) err {e1:.2e}; hines_solve_factored {t2:.4f} ms "
-            f"(plain {t2p:.4f}) err {e2:.2e}; hh_rhs {t4:.4f} ms (plain "
-            f"{t4p:.4f}) err {e4:.2e}")
+        ne = N * C
+        got = {
+            "hines_factor": kernel_row(
+                e1, lambda: h_ops.hines_factor(p.parent, p.g_axial, dT),
+                lambda: h_ref.hines_factor_ref(p.parent, p.g_axial, dT),
+                16 * ne + 12 * C, 3 * (C - 1) * N),
+            "hines_solve_factored": kernel_row(
+                e2, lambda: h_ops.hines_solve_factored(p.parent, p.g_axial,
+                                                       deT, b.T),
+                lambda: h_ref.hines_solve_factored_ref(p.parent, p.g_axial,
+                                                       deT, b.T),
+                24 * ne + 12 * C, (6 * (C - 1) + 1) * N),
+            "hh_rhs": kernel_row(
+                e4, lambda: hh_ops.hh_rhs(p.area, v, m, h, n),
+                lambda: hh_ref.hh_rhs_ref(p.area, v, m, h, n),
+                72 * ne + 8 * C, 280 * ne)}
+        for name, row in got.items():
+            say("kernels", f"C={C} N={N}: {name} {fmt_row(row)}; err "
+                f"{row['max_abs_err']:.2e}")
         if C > 1:
-            ne = N * C
-            rows["hines_factor"] = (e1, t1, t1p, *bound_ms(
-                16 * ne + 12 * C, 3 * (C - 1) * N))
-            rows["hines_solve_factored"] = (e2, t2, t2p, *bound_ms(
-                24 * ne + 12 * C, (6 * (C - 1) + 1) * N))
-            rows["hh_rhs"] = (e4, t4, t4p, *bound_ms(72 * ne + 8 * C,
-                                                     280 * ne))
+            rows.update(got)
 
     net = make_network(N, k_in=K_IN, seed=NET_SEED)
     pre, dly = ew_ops.by_post_layout(net, dev)
@@ -330,12 +418,12 @@ def phase_kernels(dev):
     h_r, s_r = ew_ref.horizon_gather_ref(tc, pre, dly, **kw)
     e5 = max(check_close("horizon_score.hor", hor, h_r, exact=True),
              check_close("horizon_score.score", score, s_r, exact=True))
-    t5 = cuda_ms(lambda: ew_ops.horizon_score(tc, pre, dly, **kw))
-    t5p = cuda_ms(lambda: ew_ref.horizon_gather_ref(tc, pre, dly, **kw))
-    say("kernels", f"K={K} N={N}: horizon_score {t5:.4f} ms (plain "
-        f"{t5p:.4f}) bitwise")
-    rows["horizon_score"] = (e5, t5, t5p, *bound_ms(
-        12 * K * N + 8 * N + 16 * N, (2 * K + 5) * N))
+    rows["horizon_score"] = kernel_row(
+        e5, lambda: ew_ops.horizon_score(tc, pre, dly, **kw),
+        lambda: ew_ref.horizon_gather_ref(tc, pre, dly, **kw),
+        12 * K * N + 8 * N + 16 * N, (2 * K + 5) * N)
+    say("kernels", f"K={K} N={N}: horizon_score "
+        f"{fmt_row(rows['horizon_score'])}; bitwise")
     say("kernels", f"K1/K2/K4/K5 agree with their plain versions "
         f"(rtol {RTOL}, atol {ATOL}; horizon bitwise); launches so far "
         f"{build.launches()}")
@@ -530,14 +618,13 @@ def phase_sched_kernels(dev, act):
     if int(masks[1.0].sum()) <= caps[0]:
         raise AssertionError("no compact_ids case with a count above cap")
     m = masks[0.5]
-    t6 = cuda_ms(lambda: ew_ops.compact_ids(m, cap))
-    t6p = cuda_ms(lambda: ew_ref.compact_ids_ref(m, cap))
-    t6l = cuda_ms(lambda: torch.nonzero(m))
-    rows["compact_ids"] = (0.0, t6, t6p, *bound_ms(N + 4 * cap + 4, N,
-                                                   INT32_OPS), t6l)
+    rows["compact_ids"] = kernel_row(
+        0.0, lambda: ew_ops.compact_ids(m, cap),
+        lambda: ew_ref.compact_ids_ref(m, cap), N + 4 * cap + 4, N,
+        INT32_OPS, library=lambda: torch.nonzero(m), library_syncs=True)
     say("sched-kernels", f"compact_ids N={N} caps {caps}, densities "
-        f"{sorted(masks)}: bitwise; {t6:.4f} ms (plain {t6p:.4f}, "
-        f"torch.nonzero {t6l:.4f})")
+        f"{sorted(masks)}: bitwise; {fmt_row(rows['compact_ids'])} "
+        "(library: torch.nonzero)")
 
     net = make_network(N, k_in=K_IN, seed=NET_SEED)
     table = torch.as_tensor(out_edge_table(net), device=dev).contiguous()
@@ -549,15 +636,15 @@ def phase_sched_kernels(dev, act):
              ew_ops.compact_gather(mm, table, s_cap, fill=E),
              ew_ref.compact_gather_ref(mm, table, s_cap, E))
     n_real = int(real.sum())
-    t7 = cuda_ms(lambda: ew_ops.compact_gather(real, table, s_cap, fill=E))
-    t7p = cuda_ms(lambda: ew_ref.compact_gather_ref(real, table, s_cap, E))
     filled = min(n_real, s_cap)
-    rows["compact_gather"] = (0.0, t7, t7p, *bound_ms(
+    rows["compact_gather"] = kernel_row(
+        0.0, lambda: ew_ops.compact_gather(real, table, s_cap, fill=E),
+        lambda: ew_ref.compact_gather_ref(real, table, s_cap, E),
         N + 4 * filled * MO + 4 * s_cap * (MO + 1) + 4, N + s_cap * MO,
-        INT32_OPS), None)
+        INT32_OPS)
     say("sched-kernels", f"compact_gather N={N} MO={MO} spike_cap={s_cap} "
         f"fill=E={E}, path mask with {n_real} spikes and densities "
-        f"{sorted(masks)}: bitwise; {t7:.4f} ms (plain {t7p:.4f})")
+        f"{sorted(masks)}: bitwise; {fmt_row(rows['compact_gather'])}")
 
     keys = act["keys"]
     S, B = act["wheel"][1], act["wheel"][0]
@@ -569,14 +656,13 @@ def phase_sched_kernels(dev, act):
              (ew_ops.segment_rank(k, S),), (ew_ref.segment_rank_ref(k, S),))
     Ek = int(keys.shape[0])
     n_valid = int((keys < n_keys).sum())
-    t8 = cuda_ms(lambda: ew_ops.segment_rank(keys, S))
-    t8p = cuda_ms(lambda: ew_ref.segment_rank_ref(keys, S))
     ops = rank_compares(keys.cpu().numpy(), S)
-    rows["segment_rank"] = (0.0, t8, t8p, *bound_ms(8 * Ek, ops, INT32_OPS),
-                            None)
+    rows["segment_rank"] = kernel_row(
+        0.0, lambda: ew_ops.segment_rank(keys, S),
+        lambda: ew_ref.segment_rank_ref(keys, S), 8 * Ek, ops, INT32_OPS)
     say("sched-kernels", f"segment_rank E={Ek} ({n_valid} valid keys "
-        f"target*{B}+bucket, the rest N*B) max_rank={S}: bitwise; {t8:.4f} "
-        f"ms (plain {t8p:.4f}); {ops} compares needed (of "
+        f"target*{B}+bucket, the rest N*B) max_rank={S}: bitwise; "
+        f"{fmt_row(rows['segment_rank'])}; {ops} compares needed (of "
         f"{Ek * (Ek - 1) // 2} pairs) at {INT32_OPS:.3g} int32 ops/s")
     return rows
 
@@ -693,18 +779,19 @@ def phase_fused_solve(dev):
         rhs = b[..., None]
         xl = torch.linalg.solve(dense, rhs)[..., 0]
         err = float((xl - x.T).abs().max())
-        t3 = cuda_ms(lambda: h_ops.hines_solve(p.parent, p.g_axial, dT, bT))
-        t3p = cuda_ms(lambda: h_ref.hines_solve_ref(p.parent, p.g_axial, dT,
-                                                    bT))
-        t3l = cuda_ms(lambda: torch.linalg.solve(dense, rhs))
-        say("fused-solve", f"C={C} N={N}: hines_solve {t3:.4f} ms (plain "
-            f"{t3p:.4f}, torch.linalg.solve on the dense [N, C, C] systems "
-            f"{t3l:.4f}); bitwise equal to the plain version and to "
-            f"K2(K1(d), b); dense solve differs by {err:.2e}")
+        ne = N * C
+        got = kernel_row(
+            0.0, lambda: h_ops.hines_solve(p.parent, p.g_axial, dT, bT),
+            lambda: h_ref.hines_solve_ref(p.parent, p.g_axial, dT, bT),
+            24 * ne + 12 * C, (8 * (C - 1) + 1) * N,
+            library=lambda: torch.linalg.solve(dense, rhs),
+            library_syncs=True)
+        say("fused-solve", f"C={C} N={N}: hines_solve {fmt_row(got)} "
+            f"(library: torch.linalg.solve on the dense [N, C, C] systems); "
+            f"bitwise equal to the plain version and to K2(K1(d), b); "
+            f"dense solve differs by {err:.2e}")
         if C == 13:
-            ne = N * C
-            row = (0.0, t3, t3p, *bound_ms(24 * ne + 12 * C,
-                                           (8 * (C - 1) + 1) * N), t3l)
+            row = got
     return {"hines_solve": row}
 
 
@@ -1071,14 +1158,13 @@ def phase_parcel_kernel(dev, path_mask):
         raise AssertionError("no compact_rows case with a row over the cap")
     m = masks["spmd path"]
     kept = int(torch.clamp(m.sum(dim=1), max=cap).sum())
-    t9 = cuda_ms(lambda: ew_ops.spike_compact(m, vals, cap))
-    t9p = cuda_ms(lambda: ew_ref.compact_rows_ref(m, vals, cap))
     nbytes = D * M + 8 * kept + D * cap * (4 + 8) + 4 * D
-    row = (0.0, t9, t9p, *bound_ms(nbytes, D * M, INT32_OPS), None)
+    row = kernel_row(0.0, lambda: ew_ops.spike_compact(m, vals, cap),
+                     lambda: ew_ref.compact_rows_ref(m, vals, cap), nbytes,
+                     D * M, INT32_OPS)
     say("parcel-kernel", f"compact_rows D={D} M={M} cap={cap}, masks "
         f"{list(masks)} (path mask: {int(m.sum())} set, {kept} kept): "
-        f"bitwise; {t9:.4f} ms (plain {t9p:.4f}); bound {row[3]:.6f} ms "
-        f"({row[4]}, {nbytes} bytes)")
+        f"bitwise; {fmt_row(row)}, {nbytes} bytes")
     return {"compact_rows": row}
 
 
@@ -1157,69 +1243,118 @@ ATTN_CASES = [  # name, B, H, Hkv, Sq, Skv, D, causal, kv_len
     ("decode kv_len=37", 4, 9, 3, 1, 256, 64, True, 37),
     ("decode kv_len=255", 4, 9, 3, 1, 256, 64, True, 255),
     ("decode kv_len=256", 4, 9, 3, 1, 256, 64, True, 256),
+    ("decode kv_len=2048", 4, 9, 3, 1, 2048, 64, True, 2048),
+    ("decode kv_len=4096", 4, 9, 3, 1, 4096, 64, True, 4096),
+    ("decode Sq=5 kv_len=555", 1, 9, 3, 5, 600, 64, True, 555),
+    ("decode group 8 Sq=8 D=16", 1, 8, 1, 8, 64, 16, True, None),
+    ("decode bidirectional Sq=20", 1, 3, 1, 20, 200, 64, False, 150),
     ("ragged Sq=37 Skv=100", 4, 9, 3, 37, 100, 64, True, None),
     ("bidirectional", 4, 9, 3, 256, 256, 64, False, None),
+    ("group 1 D=16", 2, 8, 8, 130, 130, 16, True, None),
+    ("group 8 Skv=333 D=128", 1, 16, 2, 100, 333, 128, True, None),
     ("deepseek-7b D=128", 1, 32, 32, 2048, 2048, 128, True, None),
     ("qwen2-72b D=128", 1, 64, 8, 2048, 2048, 128, True, None),
+    ("qwen2-72b decode kv_len=4096", 2, 64, 8, 1, 4096, 128, True, 4096),
 ]
+# the shapes timed in phase 15: (row, case) -- the serve model's prefill,
+# its decode step against a full 256-slot cache, and a 4096-row cache
+ATTN_TIMED = (("flash_attention_prefill", "prefill"),
+              ("flash_attention_decode", "decode kv_len=256"),
+              ("decode kv_len=4096", "decode kv_len=4096"))
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+#                                (NVIDIA data sheet)
+
+
+def _attn_row(dev, dtype, case):
+    """Times K10 on ``case`` (bf16 or float32 in, float32 out) beside its
+    plain version and ``scaled_dot_product_attention`` with its bound."""
+    from repro_torch.kernels.attention import ops as a_ops
+    from repro_torch.kernels.attention import ref as a_ref
+    name, B, H, Hkv, Sq, Skv, D, causal, kv_len = case
+    q, k, v = _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D)
+    kw = dict(causal=causal, offset=None if kv_len is None else
+              kv_len - Sq, kv_len=kv_len, out_dtype=torch.float32)
+    got = a_ops.flash_attention(q, k, v, **kw)
+    err, _ = check_attention(name, got, q, k, v, causal, kw["offset"],
+                             kv_len)
+    kv = kv_len or Skv
+    ks, vs = k[:, :, :kv], v[:, :, :kv]
+    flops = (2 if causal and Sq > 1 else 4) * B * H * Sq * kv * D
+    size = q.element_size()
+    nbytes = size * B * H * Sq * D + 2 * size * B * Hkv * kv * D \
+        + 4 * B * H * Sq * D
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = kernel_row(
+        err, lambda: a_ops.flash_attention(q, k, v, **kw),
+        lambda: a_ref.flash_attention_ref(q, k, v, kw["causal"],
+                                          kw["offset"], kv_len,
+                                          torch.float32),
+        nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+        library=lambda: sdpa(q, ks, vs, is_causal=causal and Sq > 1,
+                             enable_gqa=True))
+    say("attention", f"{name} B={B} H={H} Hkv={Hkv} Sq={Sq} kv={kv} D={D} "
+        f"{str(dtype)[6:]}->float32: K10 {fmt_row(row)} (library: "
+        f"scaled_dot_product_attention); "
+        f"{flops / row['device_ms'] / 1e9:.1f} TFLOP/s on the device")
+    return row
 
 
 def phase_attention(dev):
-    """K10 against its plain version in bf16 and float32 at the serve
-    path's shapes and the larger configs' head shapes; timings of the
-    prefill and of a full-cache decode step beside the plain version and
+    """K10's three kernels against their plain version in bf16 (both new
+    kernels) and float32 at the serve path's shapes and the larger
+    configs' head shapes, each case checking which kernel ran; timings of
+    the prefill and of decode steps beside the plain version and
     ``scaled_dot_product_attention`` (a yardstick only: the port never
     calls it)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention import ops as a_ops
-    from repro_torch.kernels.attention import ref as a_ref
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in fp32
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, H, Hkv, Sq, Skv, D, causal, kv_len in ATTN_CASES:
             q, k, v = _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D)
             offset = None if kv_len is None else kv_len - Sq
+            kind = flash.variant(dtype, Sq, H // Hkv, D)
             for out_dtype in dict.fromkeys((dtype, torch.float32)):
+                build.reset_launches()
                 got = a_ops.flash_attention(q, k, v, causal=causal,
                                             offset=offset, kv_len=kv_len,
                                             out_dtype=out_dtype)
                 torch.cuda.synchronize()
-                tag = f"{name} {str(dtype)[6:]}->{str(out_dtype)[6:]}"
+                tag = f"{name} {str(dtype)[6:]}->{str(out_dtype)[6:]} " \
+                    f"({kind})"
+                if build.launches()[f"flash_attention_{kind}"] != 1:
+                    raise AssertionError(f"{tag}: the {kind} kernel did not "
+                                         f"run ({build.launches()})")
                 errs[tag] = check_attention(tag, got, q, k, v, causal,
                                             offset, kv_len)
                 del got
     for tag, (e, used) in errs.items():
         say("attention", f"{tag}: max abs err {e:.3e}, {used:.3f} of the "
             "limit")
+    kinds = {t.rsplit("(", 1)[1][:-1] for t in errs}
+    if kinds != {"f32", "prefill", "decode"}:
+        raise AssertionError(f"phase 15 ran only the {sorted(kinds)} kernels")
     say("attention", f"K10 agrees with its plain version on {len(errs)} "
         f"cases (limit {ATTN_TOL} * (1 + |want|), plus for bf16 inputs "
         "2**-7 * (sum_j (p_j / l) |v_j| + |o| if the output is bf16))")
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {}
-    for name, B, H, Hkv, Sq, Skv, D, causal, kv_len in (ATTN_CASES[0],
-                                                        ATTN_CASES[4]):
+    cases = {c[0]: c for c in ATTN_CASES}
+    rows = {row: _attn_row(dev, torch.bfloat16, cases[case])
+            for row, case in ATTN_TIMED}
+    rows["flash_attention_f32"] = _attn_row(dev, torch.float32,
+                                            cases["prefill"])
+    for case in ("decode kv_len=256", "decode kv_len=4096"):
+        B, H, Hkv, Sq, Skv, D, _, kv = cases[case][1:]
         q, k, v = _attn_inputs(dev, torch.bfloat16, B, H, Hkv, Sq, Skv, D)
-        kw = dict(causal=causal, offset=None if kv_len is None else
-                  kv_len - Sq, kv_len=kv_len, out_dtype=torch.float32)
-        got = a_ops.flash_attention(q, k, v, **kw)
-        err, _ = check_attention(name, got, q, k, v, causal, kw["offset"],
-                                 kv_len)
-        t = cuda_ms(lambda: a_ops.flash_attention(q, k, v, **kw))
-        tp = cuda_ms(lambda: a_ref.flash_attention_ref(
-            q, k, v, kw["causal"], kw["offset"], kv_len, torch.float32))
-        tl = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal and Sq > 1,
-                                  enable_gqa=True))
-        kv = kv_len or Skv
-        flops = (2 if causal and Sq > 1 else 4) * B * H * Sq * kv * D
-        nbytes = 2 * B * H * Sq * D + 2 * 2 * B * Hkv * kv * D \
-            + 4 * B * H * Sq * D
-        bound, by = bound_ms(nbytes, flops, rate=BF16_FLOPS)
-        say("attention", f"{name} B={B} H={H} Hkv={Hkv} Sq={Sq} kv={kv} "
-            f"D={D} bf16->f32: K10 {t:.4f} ms, plain {tp:.4f} ms, sdpa "
-            f"{tl:.4f} ms, bound {bound:.5f} ms ({by}); "
-            f"{flops / t / 1e9:.1f} TFLOP/s")
-        rows[name] = (err, t, tp, bound, by, tl)
-    return {"flash_attention": rows["prefill"]}, rows
+        times = {n: device_ms(lambda: flash.flash_attention_cuda(
+            q, k, v, offset=kv - 1, kv_len=kv, out_dtype=torch.float32,
+            splits=n)) for n in (1, 2, 4, 8, 16, 32)}
+        say("attention", f"{case}: device ms by kv splits per (batch, kv "
+            f"head): " + ", ".join(f"{n}: {t:.5f}" for n, t in times.items())
+            + f"; the default takes {flash.decode_splits(B, Hkv, kv)[0]}")
+    return rows
 
 
 # --------------------------------------------------------------- phase 16 --
@@ -1252,14 +1387,18 @@ def phase_serve(dev, smi):
     logits = lm.prefill(cfg, params, {"tokens": toks}, device=dev)
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
-    pre_launches = build.launches()["flash_attention"]
+    pre_counts = build.launches()
+    pre_launches = pre_counts["flash_attention"]
     if tuple(logits.shape) != (B, 1, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} are not "
                              "finite [B, 1, V]")
-    if pre_launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched K10 {pre_launches} times, "
-                             f"not once per layer ({cfg.n_layers})")
+    if pre_launches != cfg.n_layers or \
+            pre_counts["flash_attention_prefill"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched K10 {pre_launches} times "
+                             f"({pre_counts['flash_attention_prefill']} of "
+                             f"them the prefill kernel), not once per layer "
+                             f"({cfg.n_layers})")
     say("serve", f"prefill {B} x {S} tokens: {t_pre * 1e3:.1f} ms "
         f"({B * S / t_pre:.0f} tok/s), K10 launches {pre_launches}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1286,17 +1425,23 @@ def phase_serve(dev, smi):
         f"({res.prefill_steps} of them prefill) at "
         f"{stats['ms_per_step']:.2f} ms each; peak memory "
         f"{stats['peak_gib']:.3f} GiB; K10 launches "
-        f"{launches['flash_attention']}; on {smi}")
+        f"{launches['flash_attention']} (decode kernel "
+        f"{launches['flash_attention_decode']}); on {smi}")
     if res.done != args.requests or res.n_tokens <= 0:
         raise AssertionError(f"served {res.done} of {args.requests} "
                              f"requests, {res.n_tokens} tokens")
     if res.nonfinite_steps:
         raise AssertionError(f"{res.nonfinite_steps} decode steps gave "
                              "non-finite logits")
-    if launches["flash_attention"] != steps * cfg.n_layers:
+    if launches["flash_attention"] != steps * cfg.n_layers or \
+            launches["flash_attention_decode"] != steps * cfg.n_layers:
         raise AssertionError(f"K10 launched {launches['flash_attention']} "
-                             f"times, not {steps} steps x {cfg.n_layers}")
-    return launches["flash_attention"], stats
+                             f"times ({launches['flash_attention_decode']} "
+                             f"the decode kernel), not {steps} steps x "
+                             f"{cfg.n_layers}")
+    return {"flash_attention_prefill": pre_counts["flash_attention_prefill"],
+            "flash_attention_decode": launches["flash_attention_decode"]}, \
+        stats
 
 
 # --------------------------------------------------------------- phase 17 --
@@ -1311,9 +1456,12 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.launch import serve
     from repro_torch.models import lm
     out = {}
+    kernel = {"float32": "flash_attention_f32",
+              "bfloat16": "flash_attention_decode"}
     for cd in ("float32", "bfloat16"):
         cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
                                   compute_dtype=cd)
@@ -1324,9 +1472,15 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
             seen.append(logits.cpu())
             return serve.greedy(logits)
 
-        card = serve.serve_requests(cfg, lm.init_params(cfg, 0, device=dev),
-                                    queue, slots, max_new, cache_len,
-                                    device=dev, pick=record)
+        params = lm.init_params(cfg, 0, device=dev)
+        build.reset_launches()
+        card = serve.serve_requests(cfg, params, queue, slots, max_new,
+                                    cache_len, device=dev, pick=record)
+        counts = build.launches()
+        if counts[kernel[cd]] != counts["flash_attention"] or \
+                not counts["flash_attention"]:
+            raise AssertionError(f"{cd}: the card run did not go through "
+                                 f"{kernel[cd]} alone ({counts})")
         tol = LM_TOL[cd] * (1.0 if cd == "float32" else
                             max(float(x.abs().max()) for x in seen))
         steps = iter(seen)
@@ -1356,10 +1510,12 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
                 card.nonfinite_steps or cpu.nonfinite_steps:
             raise AssertionError(f"{cd}: the card and CPU runs diverged")
         out[cd] = dict(steps=card.decode_steps, max_abs_err=worst, tol=tol,
-                       picks_differed=differ, picks=len(seen) * slots)
+                       picks_differed=differ, picks=len(seen) * slots,
+                       kernel=kernel[cd], launches=counts[kernel[cd]])
         say("lm-vs-cpu", f"reduced {LM_ARCH} compute {cd}: {requests} "
             f"requests, {card.decode_steps} decode steps, logits max abs err "
-            f"{worst:.3e} (tol {tol:.3e}); CPU greedy picks differed from "
+            f"{worst:.3e} (tol {tol:.3e}), {counts[kernel[cd]]} launches "
+            f"of {kernel[cd]}; CPU greedy picks differed from "
             f"the card's on {differ} of {len(seen) * slots}, each within "
             f"the tolerance of a top-2 tie")
     return out
@@ -1468,10 +1624,12 @@ def main(argv=None):
                                                            main_stats)
     rows.update(phase_parcel_kernel(dev, path_mask))
     phase_spmd_small(dev)
-    k10_row, attn_rows = phase_attention(dev)
-    rows.update(k10_row)
-    launches["flash_attention"], lm_stats = phase_serve(dev, smi)
+    attn_rows = phase_attention(dev)
+    rows.update({k: attn_rows[k] for k in K10_KERNELS})
+    serve_launches, lm_stats = phase_serve(dev, smi)
+    launches.update(serve_launches)
     lm_vs_cpu = phase_lm_card_vs_cpu(dev)
+    launches["flash_attention_f32"] = lm_vs_cpu["float32"]["launches"]
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -1483,10 +1641,7 @@ def main(argv=None):
     launches.update({k: base_launches[k] for k in BASELINE_PATH})
     kernels = [{"name": k, "route": "cuda", "source": SOURCE[k],
                 "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": rows[k][0], "ms": rows[k][1],
-                "plain_ms": rows[k][2], "bound_ms": rows[k][3],
-                "bound_by": rows[k][4],
-                "library_ms": rows[k][5] if len(rows[k]) > 5 else None}
+                **{key: rows[k][key] for key in ROW_KEYS}}
                for k in REPLACES]
     main_stats.pop("counts")
     for k in ("mask", "keys"):

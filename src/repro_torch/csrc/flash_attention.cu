@@ -1,41 +1,41 @@
-// Flash attention (K10) for Hopper (sm_90a): causal or bidirectional GQA
-// attention with an online softmax, float32 or bfloat16 inputs.
+// Flash attention (K10) for Hopper (sm_90a), the float32 kernel: causal
+// or bidirectional GQA attention with an online softmax on the CUDA cores.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/attention/flash.py::flash_attention_pallas
 //   (_flash_kernel, and the padding wrapper kernels/attention/ops.py)
+// for float32 inputs.  bfloat16 inputs run on the tensor cores instead:
+// flash_prefill.cu (wgmma) where Sq * group is above 64, flash_decode.cu
+// (one block per GQA group, mma.sync) at and below it; the choice is
+// kernels/attention/flash.py::variant.  TF32 products would not meet the
+// float32 tolerance of 1e-5, so float32 stays on the CUDA cores.
 //
 // Function (that of the Pallas kernel): query head h reads kv head
 // h / (H / Hkv); s = (q . k) * (1/sqrt(D)) in float32; masked entries
 // (causal: col > row + offset; always: col >= kv_len) take the finite
 // -1e30, not -inf; a running (acc, m, l) per row in float32, with
-// p = exp(s - m_new) summed into l unrounded and cast to the inputs' type
-// before the product with v; the output acc / max(l, 1e-30) in the
-// requested type (the inputs' type, or float32 for the model path).  A kv
+// p = exp(s - m_new) summed into l and cast to the inputs' type before
+// the product with v; the output acc / max(l, 1e-30) in float32.  A kv
 // tile that is entirely masked for a row adds p = exp(-1e30 - m) = 0; the
 // wrapper refuses a geometry that leaves a row no valid column at all.
 //
-// What bounds it on this card: operations.  At the serve path's prefill
-// (B = 4, S = 2048, H = 9, Hkv = 3, D = 64, causal) the work is
-// 2 * B * H * S^2 * D = 1.9e10 FLOPs, 0.020 ms at the 989 TFLOP/s of bf16
-// on the tensor cores, against 35 MB of inputs and output, 0.010 ms at
-// 3.35 TB/s.  A decode step (Sq = 1) against a cache is bound by bytes:
-// it reads the first kv_len rows of K and V once.
+// What bounds it on this card: operations.  At a prefill of B = 4,
+// S = 2048, H = 9, D = 64 (causal) the work is 2 * B * H * S^2 * D = 1.9e10
+// FLOPs, 0.28 ms at the 67 TFLOP/s of float32 on the CUDA cores.
 //
-// This version runs on the CUDA cores in float32, not on the tensor cores
-// (explicit fmaf, since the shared build flags forbid contraction):
-// one block of 256 threads per (batch * head, tile of 64 query rows), four
+// Design: explicit fmaf (the shared build flags forbid contraction); one
+// block of 256 threads per (batch * head, tile of 64 query rows), four
 // threads per query row, each holding a quarter of the row's q and acc in
 // registers (dims i*16 + lane*4 + c, so the four lanes of a row read 64
 // consecutive bytes of a shared-memory row).  K and V tiles of 64 rows are
-// staged in shared memory as float32; a tile's 64 scores stay in
-// registers, reduced over the four lanes with two shuffles.  Every tensor
-// is read through its strides, so the model's [B, S, H, D] activations
-// and [B, S, Hkv, D] cache go in without a transposed copy, and ragged Sq
-// and Skv are masked here rather than padded.  The kv loop stops at
-// min(kv_len, the causal limit of the block's last row): a decode step
-// costs what its kv_len needs, not what the cache holds.  The blocks of
-// the longest causal rows are issued first.  wgmma and TMA are later work.
+// staged in shared memory; a tile's 64 scores stay in registers, reduced
+// over the four lanes with two shuffles.  Every tensor is read through its
+// strides, so the model's [B, S, H, D] activations and [B, S, Hkv, D]
+// cache go in without a transposed copy, and ragged Sq and Skv are masked
+// here rather than padded.  The kv loop stops at min(kv_len, the causal
+// limit of the block's last row).  The blocks of the longest causal rows
+// are issued first.  The kernel is a template over the input and output
+// types; only float32 -> float32 is instantiated.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -200,18 +200,14 @@ int dispatch_types(int in_code, int out_code, const void* q, long long qsb,
 #define FA_ARGS q, qsb, qsh, qss, k, ksb, ksh, kss, v, vsb, vsh, vss, o, osb, \
                 osh, oss, B, H, Hkv, Sq, kv_len, offset, causal, stream
   if (in_code == 0 && out_code == 0) return launch<float, float, D>(FA_ARGS);
-  if (in_code == 1 && out_code == 0)
-    return launch<__nv_bfloat16, float, D>(FA_ARGS);
-  if (in_code == 1 && out_code == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, D>(FA_ARGS);
 #undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16.  Strides are in elements; the head
-// dimension of every tensor is contiguous.
+// dtype codes: 0 float32 (the only pair built: float32 in and out).  Strides
+// are in elements; the head dimension of every tensor is contiguous.
 extern "C" int flash_attention_launch(
     const void* q, long long qsb, long long qsh, long long qss,
     const void* k, long long ksb, long long ksh, long long kss,

@@ -1,13 +1,25 @@
-"""CUDA wrapper of flash attention (K10).
+"""CUDA wrappers of flash attention (K10).
 
-Replaces ``repro/kernels/attention/flash.py::flash_attention_pallas`` and
-its padding wrapper ``repro/kernels/attention/ops.py::flash_attention``;
-the kernel is in ``csrc/flash_attention.cu``.  q, k and v are read
-through their strides (the head dimension must be contiguous), so the
-model's ``[B, S, H, D]`` activations and ``[B, S, Hkv, D]`` cache slices
-go in as ``transpose(1, 2)`` views without a copy.  The output is
-allocated ``[B, Sq, H, D]`` and returned as its ``[B, H, Sq, D]`` view,
-so the model's ``transpose(1, 2)`` back is contiguous.
+Replace ``repro/kernels/attention/flash.py::flash_attention_pallas`` and
+its padding wrapper ``repro/kernels/attention/ops.py::flash_attention``
+with three kernels, one source each in ``csrc/``, chosen by
+:func:`variant`:
+
+* ``"f32"``: float32 inputs, ``flash_attention.cu`` on the CUDA cores
+  (TF32 products would not meet the float32 tolerance);
+* ``"decode"``: bfloat16 inputs with ``Sq * group <= DECODE_ROWS``
+  (every serve step), ``flash_decode.cu``: one block per (batch, kv head)
+  holds the whole GQA group, so each K/V row is read once for it; long
+  caches are also split over blocks (:func:`decode_splits`);
+* ``"prefill"``: the other bfloat16 calls, ``flash_prefill.cu`` with
+  wgmma on the tensor cores.
+
+q, k and v are read through their strides (the head dimension must be
+contiguous, and for bf16 every row 16-byte aligned), so the model's
+``[B, S, H, D]`` activations and ``[B, S, Hkv, D]`` cache slices go in as
+``transpose(1, 2)`` views without a copy.  The output is allocated
+``[B, Sq, H, D]`` and returned as its ``[B, H, Sq, D]`` view, so the
+model's ``transpose(1, 2)`` back is contiguous.
 """
 from __future__ import annotations
 
@@ -20,31 +32,74 @@ from repro_torch.kernels.attention.ref import geometry
 
 _I64, _I32, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)     # the kernel's template instantiations
+HEAD_DIMS = (16, 64, 128)     # the kernels' template instantiations
+DECODE_ROWS = 64              # Sq * group the decode kernel takes
+DECODE_TILE = 64              # kv rows per tile of the decode kernel
+SPLIT_MIN_TILES = 8           # decode splits kv over blocks from 512 rows
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+_SOURCE = {"f32": "flash_attention", "prefill": "flash_prefill",
+           "decode": "flash_decode"}
+_ARGS = {"f32": [_P, _I64, _I64, _I64] * 4 + [_I32] * 11 + [_P],
+         "prefill": [_P, _I64, _I64, _I64] * 4 + [_I32] * 10 + [_P],
+         "decode": [_P, _I64, _I64, _I64] * 4 + [_P] + [_I32] * 12 + [_P]}
 
 
-def _lib():
-    lib = build.load("flash_attention")
+def variant(dtype, Sq, group, D) -> str:
+    """The K10 kernel that serves a call: ``"f32"``, ``"decode"`` or
+    ``"prefill"``, from the inputs' dtype, the query rows, the GQA group
+    (H / Hkv) and the head size."""
+    if dtype not in _CODES:
+        raise ValueError(f"K10 takes float32 or bfloat16 inputs, got {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "f32"
+    return "decode" if Sq * group <= DECODE_ROWS else "prefill"
+
+
+def decode_splits(B, Hkv, kv_end, splits=None) -> tuple[int, int]:
+    """(splits, kv tiles per split) of the decode kernel.  By default the
+    kv tiles of each (batch, kv head) are split over blocks only where the
+    cache is long (``SPLIT_MIN_TILES``) and the ``B * Hkv`` blocks alone
+    leave most of the card's SMs idle; ``splits`` asks for a count.  Every
+    split gets at least one tile."""
+    tiles = -(-kv_end // DECODE_TILE)
+    if splits is None:
+        splits = min(tiles, max(1, SMS // (B * Hkv))) \
+            if tiles >= SPLIT_MIN_TILES else 1
+    per = -(-tiles // max(1, min(int(splits), tiles)))
+    return -(-tiles // per), per
+
+
+def _lib(name):
+    lib = build.load(_SOURCE[name])
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_launch.argtypes = (
-            [_P, _I64, _I64, _I64] * 4 + [_I32] * 11 + [_P])
-        lib.flash_attention_launch.restype = ctypes.c_int
+        fn = getattr(lib, f"{_SOURCE[name]}_launch")
+        fn.argtypes = _ARGS[name]
+        fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, offset=None, kv_len=None,
-                         out_dtype=None):
-    """q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D] -> [B, H, Sq, D]."""
+                         out_dtype=None, splits=None):
+    """q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D] -> [B, H, Sq, D].
+
+    ``splits`` (decode kernel only) overrides :func:`decode_splits`'s
+    count of kv splits over blocks.
+    """
     out_dtype = out_dtype or q.dtype
+    args = []
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda or x.dim() != 4 or x.dtype != q.dtype \
                 or x.device != q.device:
             raise ValueError(f"{name} must be a 4-d CUDA tensor of q's dtype "
                              f"on {q.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-        if x.stride(3) != 1:
+        st = x.stride()
+        if st[3] != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous")
+        args += [x.data_ptr(), *st[:3]]
     if q.dtype not in _CODES or out_dtype not in (torch.float32, q.dtype):
         raise ValueError(f"K10 takes float32 or bfloat16 inputs with a "
                          f"float32 or input-dtype output, got {q.dtype} -> "
@@ -53,19 +108,36 @@ def flash_attention_cuda(q, k, v, *, causal=True, offset=None, kv_len=None,
         raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     kv_len, offset = geometry(q, k, causal, offset, kv_len)
+    kind = variant(q.dtype, Sq, H // Hkv, D)
+    if kind != "f32" and any(a % 16 if i % 4 == 0 else a % 8
+                             for i, a in enumerate(args)):
+        raise ValueError("bf16 K10 reads 16-byte rows: q, k and v need "
+                         "16-byte aligned data and strides in multiples "
+                         "of 8 elements")
+    if splits is not None and kind != "decode":
+        raise ValueError(f"splits is for the decode kernel, not {kind}")
     out = torch.empty((B, Sq, H, D), dtype=out_dtype,
                       device=q.device).transpose(1, 2)
     if B * H * Sq == 0:
         return out
-    strides = []
-    for x in (q, k, v, out):
-        strides += [build.ptr(x), x.stride(0), x.stride(1), x.stride(2)]
-    err = _lib().flash_attention_launch(
-        *strides, B, H, Hkv, Sq, Skv, D, kv_len, offset, int(causal),
-        _CODES[q.dtype], _CODES[out_dtype], build.stream_ptr(q.device))
-    build.check(err, "flash_attention")
+    args += [out.data_ptr(), *out.stride()[:3]]
+    shape = (B, H, Hkv, Sq, Skv, D, kv_len, offset, int(causal))
+    stream = build.stream_ptr(q.device)
+    if kind == "f32":
+        err = _lib(kind).flash_attention_launch(*args, *shape, 0, 0, stream)
+    elif kind == "prefill":
+        err = _lib(kind).flash_prefill_launch(
+            *args, *shape, _CODES[out_dtype], stream)
+    else:
+        kv_end = min(kv_len, Sq + offset) if causal else kv_len
+        n, per = decode_splits(B, Hkv, kv_end, splits)
+        part = None if n == 1 else torch.empty(
+            B * H * Sq * n * (D + 2), dtype=torch.float32, device=q.device)
+        err = _lib(kind).flash_decode_launch(
+            *args, None if part is None else build.ptr(part), *shape, n, per,
+            _CODES[out_dtype], stream)
+    build.check(err, f"flash_attention_{kind}")
     build.count("flash_attention")
+    build.count(f"flash_attention_{kind}")
     return out

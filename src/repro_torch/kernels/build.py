@@ -9,12 +9,20 @@ an edited source is rebuilt and a stale library is never loaded.
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into fused
 multiply-adds: the neuron core is float64 and each kernel must keep the
 float operation order of its plain PyTorch version.  Flash attention (K10)
-is held to a tolerance instead and writes its fused multiply-adds out
-(``fmaf``).
+is held to a tolerance instead and has three kernels, one source each,
+chosen by ``kernels/attention/flash.py::variant``: float32 inputs run
+``flash_attention.cu`` on the CUDA cores (with its fused multiply-adds
+written out as ``fmaf``); bfloat16 inputs run ``flash_decode.cu``
+(``mma.sync``, one block per GQA group) where Sq * group is at most 64 and
+``flash_prefill.cu`` (``wgmma``) above it.  Both bf16 kernels fill their
+shared-memory tiles with ``cp.async``; none uses TMA, so no source links
+the driver API.
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises when
 it is not 0.  Each wrapper adds one to its launch counter (``count``)
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  K10 counts each call under
+``flash_attention`` and under the kernel that ran
+(``flash_attention_{f32,prefill,decode}``).
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("hines", "hh_rhs", "horizon", "compact", "segment_rank",
-           "flash_attention")
+           "flash_attention", "flash_prefill", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -40,7 +48,8 @@ _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
             "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
             "compact_gather": 0, "segment_rank": 0, "compact_rows": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_f32": 0,
+            "flash_attention_prefill": 0, "flash_attention_decode": 0}
 
 
 def nvcc_path() -> str:

@@ -75,7 +75,10 @@ def test_kernels_bitwise_equal_to_plain(dev, name):
                                 "hines_solve": 0, "hh_rhs": 1,
                                 "horizon_score": 1, "compact_ids": 0,
                                 "compact_gather": 0, "segment_rank": 0,
-                                "compact_rows": 0, "flash_attention": 0}
+                                "compact_rows": 0, "flash_attention": 0,
+                                "flash_attention_f32": 0,
+                                "flash_attention_prefill": 0,
+                                "flash_attention_decode": 0}
 
 
 @pytest.mark.cuda
@@ -339,6 +342,19 @@ def _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D, seed=0):
     return q, k, v
 
 
+def _k10_check(q, k, v, causal, offset, kv_len, out_dtype, got):
+    from repro_torch.kernels.attention import ref as a_ref
+    B, H, Sq, D = q.shape
+    want = a_ref.flash_attention_ref(q, k, v, causal, offset, kv_len,
+                                     out_dtype).float()
+    assert got.dtype == out_dtype and got.shape == (B, H, Sq, D)
+    lim = K10_TOL * (1 + want.abs())
+    if q.dtype == torch.bfloat16:
+        lim += a_ref.bf16_rounding_bound(q, k, v, causal, offset, kv_len,
+                                         out_dtype)
+    assert bool(((got.float() - want).abs() <= lim).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,kv_len", [
@@ -350,11 +366,21 @@ def _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D, seed=0):
     (1, 4, 2, 64, 64, 16, False, None),         # bidirectional
     (1, 8, 8, 200, 200, 128, True, None),       # D = 128
     (1, 4, 2, 8, 100, 128, False, 77),          # masked kv tail
+    (2, 8, 8, 130, 130, 16, True, None),        # group 1, D = 16
+    (1, 16, 2, 100, 333, 128, True, None),      # group 8, ragged Skv
+    (2, 3, 1, 70, 70, 64, False, None),         # group 3, bidirectional
+    (2, 16, 2, 1, 4096, 128, True, 4096),       # decode, group 8, split
+    (4, 9, 3, 1, 2048, 64, True, 2048),         # decode, split
+    (1, 9, 3, 5, 600, 64, True, 555),           # decode rows Sq * group 15
+    (1, 8, 1, 8, 64, 16, True, None),           # decode, 64 rows
+    (1, 3, 1, 20, 200, 64, False, 150),         # decode, 60 rows, bidir.
+    (2, 6, 2, 150, 300, 64, False, 211),        # prefill, masked kv tail
+    (1, 4, 1, 100, 400, 128, True, 350),        # prefill, causal, kv tail
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
                                               D, causal, kv_len):
+    from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention import ops as a_ops
-    from repro_torch.kernels.attention import ref as a_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D)
     offset = None if kv_len is None else kv_len - Sq
@@ -363,16 +389,61 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
         got = a_ops.flash_attention(q, k, v, causal=causal, offset=offset,
                                     kv_len=kv_len, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        want = a_ref.flash_attention_ref(q, k, v, causal, offset, kv_len,
-                                         out_dtype).float()
-        assert got.dtype == out_dtype and got.shape == (B, H, Sq, D)
-        lim = K10_TOL * (1 + want.abs())
-        if dtype == torch.bfloat16:
-            lim += a_ref.bf16_rounding_bound(q, k, v, causal, offset, kv_len,
-                                             out_dtype)
-        assert bool(((got.float() - want).abs() <= lim).all())
-    assert build.launches()["flash_attention"] == (1 if dtype ==
-                                                   torch.float32 else 2)
+        _k10_check(q, k, v, causal, offset, kv_len, out_dtype, got)
+    calls = 1 if dtype == torch.float32 else 2
+    kind = flash.variant(dtype, Sq, H // Hkv, D)
+    assert kind == ("f32" if dtype == torch.float32 else
+                    "decode" if Sq * H // Hkv <= 64 else "prefill")
+    counts = build.launches()
+    assert counts["flash_attention"] == calls
+    assert {n: counts[f"flash_attention_{n}"] for n in
+            ("f32", "prefill", "decode")} == {
+        n: calls if n == kind else 0 for n in ("f32", "prefill", "decode")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 255, 700, 4096])
+@pytest.mark.parametrize("splits", [1, 2, 7, 64])
+def test_flash_decode_splits_agree(dev, kv_len, splits):
+    """The decode kernel with its kv tiles split over 1-64 blocks (the
+    second pass merging them) against the plain version."""
+    from repro_torch.kernels.attention import flash
+    q, k, v = _k10_case(dev, torch.bfloat16, 2, 8, 2, 1, 4096, 64, seed=3)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = flash.flash_attention_cuda(q, k, v, offset=kv_len - 1,
+                                         kv_len=kv_len, out_dtype=out_dtype,
+                                         splits=splits)
+        torch.cuda.synchronize()
+        _k10_check(q, k, v, True, kv_len - 1, kv_len, out_dtype, got)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refused_launch_raises(dev):
+    """A launch the kernels refuse returns its CUDA error and the wrapper
+    raises; a misaligned bf16 view is refused before any launch."""
+    import ctypes
+
+    from repro_torch.kernels.attention import flash
+    q, k, v = _k10_case(dev, torch.bfloat16, 1, 2, 1, 80, 80, 64)
+    stream = build.stream_ptr(q.device)
+    args = []
+    for x in (q, k, v, q):
+        args += [build.ptr(x), x.stride(0), x.stride(1), x.stride(2)]
+    # head size 32 has no instantiation
+    err = flash._lib("prefill").flash_prefill_launch(
+        *args, 1, 2, 1, 80, 80, 32, 80, 0, 1, 0, stream)
+    with pytest.raises(RuntimeError, match="flash_attention_prefill"):
+        build.check(err, "flash_attention_prefill")
+    # 66 query rows are more than the decode kernel takes
+    err = flash._lib("decode").flash_decode_launch(
+        *args, ctypes.c_void_p(None), 1, 66, 1, 1, 80, 64, 80, 79, 1, 1, 2, 0,
+        stream)
+    assert err != 0
+    wide = torch.zeros((1, 80, 2, 72), dtype=torch.bfloat16, device=dev)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.flash_attention_cuda(wide[..., 1:65].transpose(1, 2), k, v)
+    assert build.launches()["flash_attention"] == 0
 
 
 LM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}

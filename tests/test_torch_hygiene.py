@@ -5,7 +5,8 @@
 * Entry points default to ``device="cuda"`` and raise without a card
   rather than running on the CPU.
 * A CUDA tensor handed to a kernel dispatcher launches the kernel or
-  raises; it never falls back to the plain version.
+  raises; it never falls back to the plain version, and no CUDA wrapper
+  can reach one.  The kernel sources call no library kernel.
 * The LM modules (``models/``, ``kernels/attention``) compute in bf16 and
   are held to tolerances, not to card == CPU bitwise equality, so the
   rounding rule below leaves them out.
@@ -61,6 +62,47 @@ def test_dispatchers_have_no_fallback_path():
     for path in OPS_FILES:
         tree = ast.parse(path.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+
+
+WRAPPER_FILES = sorted(p for p in (ROOT / "src" / "repro_torch" / "kernels")
+                       .glob("*/*.py")
+                       if p.stem not in ("__init__", "ops", "ref"))
+SOURCE_FILES = sorted((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))
+
+
+@pytest.mark.parametrize("path", WRAPPER_FILES, ids=lambda p: p.name)
+def test_cuda_wrappers_never_reach_a_plain_version(path):
+    """The CUDA wrappers (K10's three included) launch or raise: no
+    ``try``, and no plain ``*_ref`` function in reach."""
+    tree = ast.parse(path.read_text())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | \
+        {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)} | \
+        {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+         for a in n.names}
+    assert not [n for n in names if n.endswith("_ref")], path
+
+
+@pytest.mark.parametrize("path", SOURCE_FILES, ids=lambda p: p.name)
+def test_kernel_sources_use_no_library_kernels(path):
+    """Every kernel is written here: no cuBLAS, cuDNN, CUTLASS device-level
+    GEMM or PyTorch operator behind a launcher."""
+    text = path.read_text()
+    headers = {line.split()[1] for line in text.splitlines()
+               if line.startswith("#include")}
+    assert headers <= {"<cuda_bf16.h>", "<cuda_runtime.h>", "<math.h>",
+                       "<stdint.h>", "<cstdint>"}, \
+        f"{path.name} includes {headers}"
+    for word in ("cublas", "cudnn", "cutlass", "scaled_dot_product"):
+        assert word not in text.lower(), f"{path.name} mentions {word}"
+
+
+@pytest.mark.parametrize("name,product", [("flash_prefill", "wgmma.mma_async"),
+                                          ("flash_decode", "mma.sync")])
+def test_k10_bf16_kernels_use_tensor_cores_and_async_copies(name, product):
+    text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
+    assert product in text and "cp.async.cg.shared.global" in text
+    assert "__nv_bfloat16" in text and "flash_attention_ref" not in text
 
 
 HOST_NUMPY = {"morphology.py", "topology.py", "network.py", "detmath.py"}
