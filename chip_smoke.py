@@ -8,8 +8,10 @@ Phases, each reported on its own lines:
      ninja, and the parallel nvcc build of every kernel source;
   2. the per-step and horizon kernels against their plain PyTorch versions
      on the card, at the main path's shapes (K1/K2/K4 at N=16384 with C=13
-     and C=1, K5 at K=16), with each kernel's time per call (CUDA events
-     around each of 25 calls, median: the wrapper's host work included),
+     and C=1, K5 at K=16; K1, K2 and K5 bitwise, K3 == K2(K1); K1/K2 also
+     at C=29 and at N=16421, untimed), with each kernel's time per call
+     (CUDA events around each of 25 calls, median: the wrapper's host work
+     included),
      its device time (events around the replay of a CUDA graph of 50
      launches; phases 5, 8, 13 and 15 time alike) and its bound;
   3. the dense main path at full width: ``make_fap_vardt_runner`` on the
@@ -24,7 +26,7 @@ Phases, each reported on its own lines:
      card, bitwise, at the active path's shapes: its auto caps, the edge
      table of its network, a spike mask and a key batch that the path
      itself produced (with timings, bounds and ``torch.nonzero`` beside
-     K6);
+     K6), and K6 at ragged N on mask views 1-15 bytes off alignment;
   6. the dense path at N=64 on the card (kernels) and on the CPU (plain
      versions): spike trains and final states bitwise equal (the port
      rounds alike on both, ``repro_torch/core/detmath.py``);
@@ -358,51 +360,66 @@ def phase_kernels(dev):
     from repro_torch.kernels.event_wheel import ref as ew_ref
     from repro_torch.kernels.hh_rhs import ops as hh_ops
     from repro_torch.kernels.hh_rhs import ref as hh_ref
+    from repro_torch.kernels.hines import hines as h_cuda
     from repro_torch.kernels.hines import ops as h_ops
     from repro_torch.kernels.hines import ref as h_ref
 
     N = N_MAIN
     rows = {}
-    for morph in (branched_tree(depth=2, seg_per_branch=2), soma_only()):
-        model, d, fac, b = _hines_case(morph, dev, N)
+    # (tree, N, timed): the main path's cell first (its rows go into the
+    # kernels line), the soma, C = 29 and a ragged N checked only
+    cases = ((branched_tree(depth=2, seg_per_branch=2), N, True),
+             (soma_only(), N, True), (branched_tree(depth=3), N, False),
+             (branched_tree(depth=2, seg_per_branch=2), N + 37, False))
+    for morph, n, timed in cases:
+        model, d, fac, b = _hines_case(morph, dev, n)
         C, p = model.C, model.params
         # the main path's layouts: transposed [N, C] rows, factor-row slices
         dT = d.T
         de = h_ops.hines_factor(p.parent, p.g_axial, dT)
         fac[:, :C] = de.T
         deT = fac[:, :C].T
-        e1 = check_close(f"hines_factor C={C}", de,
-                         h_ref.hines_factor_ref(p.parent, p.g_axial, dT))
+        e1 = check_close(f"hines_factor C={C} N={n}", de,
+                         h_ref.hines_factor_ref(p.parent, p.g_axial, dT),
+                         exact=True)
         x = h_ops.hines_solve_factored(p.parent, p.g_axial, deT, b.T)
-        e2 = check_close(f"hines_solve_factored C={C}", x,
+        e2 = check_close(f"hines_solve_factored C={C} N={n}", x,
                          h_ref.hines_solve_factored_ref(p.parent, p.g_axial,
-                                                        deT, b.T))
-        Y = torch.cat([torch.rand((N, C), dtype=torch.float64, device=dev)
+                                                        deT, b.T), exact=True)
+        check_close(f"hines_solve == K2(K1) C={C} N={n}",
+                    h_ops.hines_solve(p.parent, p.g_axial, dT, b.T), x,
+                    exact=True)
+        Y = torch.cat([torch.rand((n, C), dtype=torch.float64, device=dev)
                        * 120.0 - 80.0,
-                       torch.rand((N, 3 * C + 2), dtype=torch.float64,
+                       torch.rand((n, 3 * C + 2), dtype=torch.float64,
                                   device=dev)], dim=1)
-        v, m, h, n = (Y[:, i * C:(i + 1) * C] for i in range(4))
-        outs = hh_ops.hh_rhs(p.area, v, m, h, n)
+        v, m, h, nn = (Y[:, i * C:(i + 1) * C] for i in range(4))
+        outs = hh_ops.hh_rhs(p.area, v, m, h, nn)
         e4 = max(check_close(f"hh_rhs[{i}] C={C}", o, r) for i, (o, r) in
-                 enumerate(zip(outs, hh_ref.hh_rhs_ref(p.area, v, m, h, n))))
-        ne = N * C
+                 enumerate(zip(outs, hh_ref.hh_rhs_ref(p.area, v, m, h, nn))))
+        if not timed:
+            say("kernels", f"C={C} N={n}: hines_factor, hines_solve_factored "
+                f"bitwise (tiles of {h_cuda.tile_neurons(C)} neurons), "
+                f"hines_solve == K2(K1); hh_rhs err {e4:.2e}")
+            continue
+        ne = n * C
         got = {
             "hines_factor": kernel_row(
                 e1, lambda: h_ops.hines_factor(p.parent, p.g_axial, dT),
                 lambda: h_ref.hines_factor_ref(p.parent, p.g_axial, dT),
-                16 * ne + 12 * C, 3 * (C - 1) * N),
+                16 * ne + 12 * C, 3 * (C - 1) * n),
             "hines_solve_factored": kernel_row(
                 e2, lambda: h_ops.hines_solve_factored(p.parent, p.g_axial,
                                                        deT, b.T),
                 lambda: h_ref.hines_solve_factored_ref(p.parent, p.g_axial,
                                                        deT, b.T),
-                24 * ne + 12 * C, (6 * (C - 1) + 1) * N),
+                24 * ne + 12 * C, (6 * (C - 1) + 1) * n),
             "hh_rhs": kernel_row(
-                e4, lambda: hh_ops.hh_rhs(p.area, v, m, h, n),
-                lambda: hh_ref.hh_rhs_ref(p.area, v, m, h, n),
+                e4, lambda: hh_ops.hh_rhs(p.area, v, m, h, nn),
+                lambda: hh_ref.hh_rhs_ref(p.area, v, m, h, nn),
                 72 * ne + 8 * C, 280 * ne)}
         for name, row in got.items():
-            say("kernels", f"C={C} N={N}: {name} {fmt_row(row)}; err "
+            say("kernels", f"C={C} N={n}: {name} {fmt_row(row)}; err "
                 f"{row['max_abs_err']:.2e}")
         if C > 1:
             rows.update(got)
@@ -424,8 +441,8 @@ def phase_kernels(dev):
         12 * K * N + 8 * N + 16 * N, (2 * K + 5) * N)
     say("kernels", f"K={K} N={N}: horizon_score "
         f"{fmt_row(rows['horizon_score'])}; bitwise")
-    say("kernels", f"K1/K2/K4/K5 agree with their plain versions "
-        f"(rtol {RTOL}, atol {ATOL}; horizon bitwise); launches so far "
+    say("kernels", f"K1/K2/K5 bitwise equal to their plain versions, K3 == "
+        f"K2(K1), K4 within rtol {RTOL}, atol {ATOL}; launches so far "
         f"{build.launches()}")
     return rows
 
@@ -617,14 +634,23 @@ def phase_sched_kernels(dev, act):
                  ew_ref.compact_ids_ref(m, c))
     if int(masks[1.0].sum()) <= caps[0]:
         raise AssertionError("no compact_ids case with a count above cap")
+    # ragged lengths and mask views 1-15 bytes past an aligned buffer
+    odd = [(n, off) for n in (N + 5, 4097, 17) for off in (0, 1, 7, 15)]
+    for n, off in odd:
+        for d in masks:
+            buf = torch.from_numpy(gen.random(n + 16) < d).to(dev)
+            mv = buf[off:off + n]
+            for c in sorted({1, cap, n}):
+                same(f"compact_ids N={n} offset={off} cap={c} density={d}",
+                     ew_ops.compact_ids(mv, c), ew_ref.compact_ids_ref(mv, c))
     m = masks[0.5]
     rows["compact_ids"] = kernel_row(
         0.0, lambda: ew_ops.compact_ids(m, cap),
         lambda: ew_ref.compact_ids_ref(m, cap), N + 4 * cap + 4, N,
         INT32_OPS, library=lambda: torch.nonzero(m), library_syncs=True)
     say("sched-kernels", f"compact_ids N={N} caps {caps}, densities "
-        f"{sorted(masks)}: bitwise; {fmt_row(rows['compact_ids'])} "
-        "(library: torch.nonzero)")
+        f"{sorted(masks)}, and N x mask offset {odd}: bitwise; "
+        f"{fmt_row(rows['compact_ids'])} (library: torch.nonzero)")
 
     net = make_network(N, k_in=K_IN, seed=NET_SEED)
     table = torch.as_tensor(out_edge_table(net), device=dev).contiguous()

@@ -116,8 +116,13 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+    """The current stream of CUDA ``device``, read without making a
+    ``torch.cuda.Stream`` object."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(err: int, name: str) -> None:

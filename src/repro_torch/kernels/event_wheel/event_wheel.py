@@ -15,10 +15,13 @@
 
 Each wrapper checks device, type, shape and contiguity, allocates its
 outputs, launches on the current stream and adds one to its launch count.
+K6's wrapper, on the active path's every round, checks in one expression,
+allocates ids and count as one buffer and keeps its typed launcher.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -85,16 +88,25 @@ def horizon_score_cuda(t_clock, pre_byk, delay_byk, *, t_end: float,
     return hor, score
 
 
+@functools.lru_cache(maxsize=None)
+def _compact_ids_launch():
+    return _lib("compact").compact_ids_launch
+
+
 def compact_ids_cuda(mask, cap: int):
     """mask bool[N] -> (ids i32[cap], count i32[]): the first ``cap`` set
-    lanes in index order, sentinel N, and the total set-lane count."""
-    _check_mask(mask, cap)
-    dev = mask.device
-    ids = torch.empty((cap,), dtype=torch.int32, device=dev)
-    cnt = torch.empty((), dtype=torch.int32, device=dev)
-    err = _lib("compact").compact_ids_launch(
-        build.ptr(mask), mask.shape[0], int(cap), build.ptr(ids),
-        build.ptr(cnt), build.stream_ptr(dev))
+    lanes in index order, sentinel N, and the total set-lane count.  Any
+    mask offset is taken: the kernel reads the unaligned head and tail
+    byte by byte."""
+    if not (mask.is_cuda and mask.dtype == torch.bool and mask.dim() == 1
+            and mask.is_contiguous() and cap >= 1):
+        _check_mask(mask, cap)
+    cap = int(cap)
+    buf = torch.empty((cap + 1,), dtype=torch.int32, device=mask.device)
+    ids, cnt = buf[:cap], buf[cap]
+    err = _compact_ids_launch()(
+        mask.data_ptr(), mask.shape[0], cap, buf.data_ptr(),
+        buf.data_ptr() + 4 * cap, build.stream_ptr(mask.device))
     build.check(err, "compact_ids")
     build.count("compact_ids")
     return ids, cnt

@@ -108,6 +108,109 @@ def test_fused_solve_bitwise_equal_to_plain_and_factored(dev, name, N):
     _eq(rows_b, b)
 
 
+# K2's morphologies: C = 1, 11, 13 (the main path's cell), 29 and 61 (a
+# tile above 48 KB of shared memory)
+K2_MORPHS = {"soma": morphology.soma_only,
+             "ball_and_stick": morphology.ball_and_stick,
+             "branched_2_2": lambda: morphology.branched_tree(2, 2),
+             "branched_3_2": lambda: morphology.branched_tree(depth=3),
+             "branched_4_2": lambda: morphology.branched_tree(depth=4)}
+
+
+def _k2_layout(layout, rows, n_factors):
+    """The [C, N] operand of an [N, C] array in one of K2's three layouts:
+    a contiguous [C, N] copy, the transposed rows, or the d_elim slice of
+    [N, n_factors] factor rows (the main path's ``factors[:, :C].T``)."""
+    N, C = rows.shape
+    if layout == "cn":
+        return rows.T.contiguous()
+    if layout == "nc":
+        return rows.T
+    fac = torch.full((N, n_factors), float("nan"), dtype=torch.float64,
+                     device=rows.device)
+    fac[:, :C] = rows
+    return fac[:, :C].T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["cn", "nc", "factor_rows"])
+@pytest.mark.parametrize("N", [1, 31, 777, 16384, 16421])
+@pytest.mark.parametrize("name", list(K2_MORPHS))
+def test_factored_solve_bitwise_in_every_layout(dev, name, N, layout):
+    """K2 against its plain version and K3 == K2(K1), bitwise, with d_elim
+    and b in a contiguous [C, N], a transposed [N, C] and the factor-row
+    layout, for trees of 1, 11, 13, 29 and 61 compartments."""
+    m = K2_MORPHS[name]()
+    C = m.n_comp
+    n_factors = CellModel(m, device="cpu").n_factors()
+    g = torch.Generator().manual_seed(N * 31 + C)
+    par = torch.as_tensor(m.parent, dtype=torch.int32)
+    gax = torch.as_tensor(m.g_axial)
+    d = hines_assemble(m.parent, gax, torch.rand((N, C), generator=g,
+                                                 dtype=torch.float64) + 0.5)
+    b = torch.randn((N, C), generator=g, dtype=torch.float64)
+    pd, gd = par.to(dev), gax.to(dev)
+    de_rows = h_ops.hines_factor(pd, gd, d.to(dev).T).T.contiguous()
+    de = _k2_layout(layout, de_rows, n_factors)
+    bv = _k2_layout(layout, b.to(dev), n_factors)
+    build.reset_launches()
+    x = h_ops.hines_solve_factored(pd, gd, de, bv)
+    assert build.launches()["hines_solve_factored"] == 1
+    _eq(x, h_ref.hines_solve_factored_ref(par, gax, de.cpu(), bv.cpu()))
+    _eq(x, h_ops.hines_solve(pd, gd, _k2_layout(layout, d.to(dev),
+                                                n_factors), bv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,seed", [(2, 0), (17, 1), (64, 2), (64, 3),
+                                    (200, 4), (282, 5)])
+def test_factored_solve_bitwise_on_random_trees(dev, C, seed):
+    """K2 derives its level schedule from parent in every block: on seeded
+    random Hines-ordered trees, from chains to bushes, up to the largest
+    tile (C = 282), bitwise against its plain version and K3 == K2(K1)."""
+    rng = np.random.default_rng(seed)
+    span = int(rng.integers(1, C))
+    parent = [-1] + [int(rng.integers(max(0, i - span), i))
+                     for i in range(1, C)]
+    N = 16421
+    par = torch.as_tensor(parent, dtype=torch.int32)
+    gax = torch.from_numpy(rng.uniform(0.1, 2.0, C))
+    d = hines_assemble(parent, gax, torch.from_numpy(
+        rng.uniform(0.5, 1.5, (N, C))))
+    b = torch.from_numpy(rng.normal(size=(N, C)))
+    pd, gd = par.to(dev), gax.to(dev)
+    de = h_ops.hines_factor(pd, gd, d.to(dev).T)
+    x = h_ops.hines_solve_factored(pd, gd, de, b.to(dev).T)
+    _eq(x, h_ref.hines_solve_factored_ref(par, gax, de.cpu(), b.T))
+    _eq(x, h_ops.hines_solve(pd, gd, d.to(dev).T, b.to(dev).T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3, 8, 15])
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 255, 16384, 16385, 70000])
+def test_compact_ids_bitwise_at_any_length_and_offset(dev, N, offset):
+    """K6 against its plain version on a mask view ``offset`` bytes past
+    an aligned buffer: caps 1, 16, 256, N and 2N at densities 0, 0.01,
+    0.5 and 1 (counts below, at and above the cap)."""
+    rng = np.random.default_rng(N * 16 + offset)
+    build.reset_launches()
+    calls = 0
+    for frac in (0.0, 0.01, 0.5, 1.0):
+        buf = torch.from_numpy(rng.random(N + 16) < frac)
+        m = buf[offset:offset + N]
+        card = buf.to(dev)[offset:offset + N]
+        assert card.data_ptr() % 16 == offset
+        for cap in sorted({1, 16, 256, N, 2 * N}):
+            ids, cnt = ew_ops.compact_ids(card, cap)
+            r_ids, r_cnt = ew_ref.compact_ids_ref(m, cap)
+            assert ids.shape == (cap,) and cnt.shape == ()
+            _eq(ids, r_ids)
+            _eq(cnt, r_cnt)
+            calls += 1
+    _eq(card, m)                                   # the mask is untouched
+    assert build.launches()["compact_ids"] == calls
+
+
 @pytest.mark.cuda
 def test_main_path_card_equals_cpu(dev):
     """A short network run: spike trains and final states bitwise equal."""
@@ -181,8 +284,10 @@ def test_active_path_card_equals_cpu_and_dense(dev):
     build.reset_launches()
     act = dict(batch="compact", batch_cap=8, fanout="compact", spike_cap=4)
     (a, ra), (b, rb) = go(dev, **act), go(torch.device("cpu"), **act)
-    assert all(v > 0 for k, v in build.launches().items()
-               if k not in ("hines_solve", "compact_rows"))
+    launched = build.launches()
+    assert all(launched[k] > 0 for k in (
+        "hines_factor", "hines_solve_factored", "hh_rhs", "horizon_score",
+        "compact_ids", "compact_gather", "segment_rank"))
     assert ra == rb and int(a.rec.count.sum()) > 0
     _eq(a.rec.times, b.rec.times)
     _eq(a.y_final, b.y_final)
