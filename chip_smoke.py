@@ -13,7 +13,8 @@ Phases, each reported on its own lines:
      (CUDA events around each of 25 calls, median: the wrapper's host work
      included),
      its device time (events around the replay of a CUDA graph of 50
-     launches; phases 5, 8, 13 and 15 time alike) and its bound;
+     launches; phases 5, 8, 13 and 15 time alike) and its bound, and the
+     launch floor (the device time of a one-element in-place ``add_``);
   3. the dense main path at full width: ``make_fap_vardt_runner`` on the
      branched cell (C=13), 16384 neurons with 16 synapses each,
      regime-mixed currents, ``horizon_impl="fused"`` -- with the kernels'
@@ -249,6 +250,13 @@ def device_ms(fn, launches=50, reps=5):
     return statistics.median(times)
 
 
+def launch_floor_ms():
+    """The device time of the smallest launch: a one-element in-place
+    ``torch.add_`` in ``device_ms``'s CUDA graph of 50 launches."""
+    one = torch.zeros(1, dtype=torch.float64, device="cuda")
+    return device_ms(lambda: one.add_(1.0))
+
+
 def profiled_device_ms(fn, calls=20):
     """Device time of one call of a function that a CUDA graph cannot
     capture, because it waits for the card (``torch.nonzero``'s count,
@@ -441,9 +449,11 @@ def phase_kernels(dev):
         12 * K * N + 8 * N + 16 * N, (2 * K + 5) * N)
     say("kernels", f"K={K} N={N}: horizon_score "
         f"{fmt_row(rows['horizon_score'])}; bitwise")
+    floor = launch_floor_ms()
     say("kernels", f"K1/K2/K5 bitwise equal to their plain versions, K3 == "
-        f"K2(K1), K4 within rtol {RTOL}, atol {ATOL}; launches so far "
-        f"{build.launches()}")
+        f"K2(K1), K4 within rtol {RTOL}, atol {ATOL}; launch floor "
+        f"{floor:.5f} ms (device time of a one-element in-place "
+        f"torch.add_); launches so far {build.launches()}")
     return rows
 
 

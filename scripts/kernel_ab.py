@@ -1,4 +1,5 @@
-"""K2 and K6 of the port, two source trees in turns on one NVIDIA card.
+"""K1, K2, K3 and K6 of the port, two source trees in turns on one NVIDIA
+card.
 
     python3 scripts/kernel_ab.py BASE_TREE [NEW_TREE] [--order ABBA]
                                  [--t-end MS]
@@ -7,23 +8,28 @@ Each tree (the root of a checkout; NEW_TREE defaults to this one) runs in
 its own process with its own ``src/`` first on the path and builds its own
 kernels; the measuring code is this checkout's (``chip_smoke.py``'s
 helpers), so only the code under test differs.  Every run measures, at the
-main path's shapes (``chip_smoke.py`` phases 2 and 5):
+main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
 
-* K2 ``hines_solve_factored`` on the branched cell (C = 13), N = 16384,
+* K1 ``hines_factor`` on ``d.T`` of the branched cell's ``[N, C]`` rows
+  (C = 13), N = 16384; K2 ``hines_solve_factored`` on the same cell,
   d_elim as the ``factors[:, :C].T`` slice of ``[N, n_factors]`` rows and b
-  as transposed ``[N, C]`` rows; K6 ``compact_ids`` on a 50 % mask of
-  N = 16384 lanes with cap = N (the active path's auto cap).  For each:
-  ``ms`` (CUDA events around each of 25 calls, median), ``device_ms`` (a
-  CUDA graph of 50 launches, median of 5 replays, over 50), ``host_us``
-  (wall of 1000 calls back to back, median of 5: the wrapper's host
-  work), and ``bitwise`` against the plain version; beside K6
-  ``torch.nonzero``'s ``ms`` and device time (``torch.profiler``, it syncs);
-* ``dense_ms_round`` and ``active_ms_round``: ``chip_smoke.py`` phase 3's
-  dense 2c run and phase 4's active-set run (probe excluded) at
-  ``--t-end`` ms (0 skips them), wall per round, with their K2 and K6
-  launches.  These are host-bound; they are reported, and no gain is
-  claimed from them;
-* ``ptxas``: registers and static shared memory of both kernels, from
+  as transposed ``[N, C]`` rows; K3 ``hines_solve`` on transposed ``[N,
+  C]`` rows of the branched (``k3``) and the ball-and-stick cell (C = 11,
+  ``k3_c11``); K6 ``compact_ids`` on a 50 % mask of N = 16384 lanes with
+  cap = N (the active path's auto cap).  For each: ``ms`` (CUDA events
+  around each of 25 calls, median), ``device_ms`` (a CUDA graph of 50
+  launches, median of 5 replays, over 50), ``host_us`` (wall of 1000 calls
+  back to back, median of 5: the wrapper's host work), and ``bitwise``
+  against the plain version; beside K6 ``torch.nonzero``'s ``ms`` and
+  device time (``torch.profiler``, it syncs);
+* ``launch_floor_ms``: the device time of a one-element in-place
+  ``torch.add_`` in the same graph harness, the least any launch costs;
+* ``dense``, ``active`` and ``2a``: ``chip_smoke.py`` phase 3's dense 2c
+  run, phase 4's active-set run (probe excluded) and phase 9's 2a run at
+  ``--t-end`` ms (0 skips them): wall per round (2c) or per window (2a),
+  with their K1/K2/K3/K6 launches.  These are host-bound; they are
+  reported, and no gain is claimed from them;
+* ``ptxas``: registers, shared memory and spills of the four kernels, from
   nvcc's ``-Xptxas -v`` (runs that built the library).
 
 One JSON line per run, then the card's name and power limit.  Compare two
@@ -46,7 +52,8 @@ sys.path.insert(0, HARNESS)
 import numpy as np
 import torch
 import chip_smoke as cs
-from repro_torch.core.morphology import branched_tree
+from repro_torch.core.exec_bsp import make_bsp_fixed_runner
+from repro_torch.core.morphology import ball_and_stick, branched_tree
 from repro_torch.kernels import build
 from repro_torch.kernels.event_wheel import ops as ew_ops
 from repro_torch.kernels.event_wheel import ref as ew_ref
@@ -81,15 +88,25 @@ def timed(fn, want):
                 host_us=host_us(fn))
 
 
-out = {}
+out = {"launch_floor_ms": cs.launch_floor_ms()}
 model, d, fac, b = cs._hines_case(branched_tree(depth=2, seg_per_branch=2),
                                   dev, N)
 C, p = model.C, model.params
-fac[:, :C] = h_ops.hines_factor(p.parent, p.g_axial, d.T).T
-deT, bT = fac[:, :C].T, b.T
+dT, bT = d.T, b.T
+out["k1"] = timed(lambda: h_ops.hines_factor(p.parent, p.g_axial, dT),
+                  h_ref.hines_factor_ref(p.parent, p.g_axial, dT))
+fac[:, :C] = h_ops.hines_factor(p.parent, p.g_axial, dT).T
+deT = fac[:, :C].T
 want = h_ref.hines_solve_factored_ref(p.parent, p.g_axial, deT, bT)
 out["k2"] = timed(lambda: h_ops.hines_solve_factored(p.parent, p.g_axial,
                                                      deT, bT), want)
+for key, morph in (("k3", branched_tree(depth=2, seg_per_branch=2)),
+                   ("k3_c11", ball_and_stick())):
+    m3, d3, _, b3 = cs._hines_case(morph, dev, N)
+    q = m3.params
+    out[key] = timed(lambda: h_ops.hines_solve(q.parent, q.g_axial, d3.T,
+                                               b3.T),
+                     h_ref.hines_solve_ref(q.parent, q.g_axial, d3.T, b3.T))
 
 mask = torch.from_numpy(np.random.default_rng(7).random(N) < 0.5).to(dev)
 out["k6"] = timed(lambda: ew_ops.compact_ids(mask, N),
@@ -97,6 +114,13 @@ out["k6"] = timed(lambda: ew_ops.compact_ids(mask, N),
 out["nonzero"] = dict(ms=cs.cuda_ms(lambda: torch.nonzero(mask)),
                       device_ms=cs.profiled_device_ms(
                           lambda: torch.nonzero(mask)))
+
+
+def launches():
+    n = build.launches()
+    return {k: n[k] for k in ("hines_factor", "hines_solve_factored",
+                              "hines_solve", "compact_ids")}
+
 
 for name, knobs in (("dense", {}), ("active", dict(wheel="auto",
                                                     **cs.ACTIVE))):
@@ -111,21 +135,37 @@ for name, knobs in (("dense", {}), ("active", dict(wheel="auto",
     wall = time.perf_counter() - t0
     if bool(res.failed) or int(res.dropped):
         raise SystemExit(f"{name} run failed or dropped events")
-    n = build.launches()
     out[name] = dict(ms_round=wall / rounds * 1e3, rounds=rounds,
-                     spikes=int(res.rec.count.sum()),
-                     k2_launches=n["hines_solve_factored"],
-                     k6_launches=n["compact_ids"])
+                     spikes=int(res.rec.count.sum()), launches=launches())
+
+if T_END > 0:
+    model, net = cs._baseline_model_net(dev, N)
+    run = make_bsp_fixed_runner(model, net, cs.regime_currents(N), T_END,
+                                method="derivimplicit", device=dev)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cs._gate_run("2a", res)
+    out["2a"] = dict(ms_window=wall / run.n_windows * 1e3,
+                     windows=run.n_windows, spikes=int(res.rec.count.sum()),
+                     launches=launches())
 
 ptxas = {}
-for src, kern in (("hines", "hines_solve_factored_kernel"),
+for src, kern in (("hines", "hines_factor_kernel"),
+                  ("hines", "hines_solve_factored_kernel"),
+                  ("hines", "hines_solve_kernel"),
                   ("compact", "compact_ids_kernel")):
     entry = None
     for line in build.ptxas_log(src).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif "registers" in line and entry and kern in entry:
-            ptxas[entry] = line.split(":", 1)[1].strip()
+        elif entry and kern in entry and ("registers" in line
+                                          or "spill" in line):
+            ptxas.setdefault(kern, []).append(
+                line.split(":", 2)[-1].strip())
 out["ptxas"] = ptxas
 print("RESULT " + json.dumps(out))
 '''
@@ -139,7 +179,7 @@ def main(argv=None):
     ap.add_argument("--order", default="ABBA",
                     help="the runs, in turn (default ABBA)")
     ap.add_argument("--t-end", type=float, default=12.0,
-                    help="simulated ms of the dense and active runs "
+                    help="simulated ms of the dense, active and 2a runs "
                          "(0: skip them)")
     args = ap.parse_args(argv)
     trees = {"A": args.base, "B": args.new}

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the Hines kernels, in the ``[C, N]`` layout,
-and a model of the level schedule that K2's kernel derives from the tree
-(``hines_schedule``)."""
+a model of the level schedule that each block of the kernels derives from
+the tree (``hines_schedule``), and the three kernels' orders on it
+(``hines_*_sched_ref``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -27,7 +28,7 @@ def hines_solve_ref(parent, g_axial, d, b):
 
 @dataclass(frozen=True)
 class HinesSchedule:
-    """K2's level schedule of one Hines-ordered tree.
+    """The level schedule of one Hines-ordered tree, as the kernels walk it.
 
     ``nodes`` lists the compartments by depth (the root alone at depth 0),
     ascending within a depth; depth L holds ``nodes[level_ptr[L]:
@@ -69,6 +70,44 @@ def hines_schedule(parent) -> HinesSchedule:
                          tuple(child_ptr), tuple(c for k in kids for c in k))
 
 
+def _eliminate(sched: HinesSchedule, gax, w, x=None):
+    """K1's and K3's elimination in the order of the level schedule, in
+    place: deepest level first, each parent adding its children in
+    descending index, each multiplier formed from the child's final row."""
+    lv, nodes = sched.level_ptr, sched.nodes
+    for L in range(sched.depth, 0, -1):
+        for p in nodes[lv[L - 1]:lv[L]]:
+            acc_w, acc_x = w[p], None if x is None else x[p]
+            for i in sched.children[sched.child_ptr[p]:sched.child_ptr[p + 1]]:
+                f = gax[i] / w[i]
+                acc_w = acc_w + (-f * gax[i])
+                if x is not None:
+                    acc_x = acc_x + f * x[i]
+            w[p] = acc_w
+            if x is not None:
+                x[p] = acc_x
+
+
+def _back_substitute(sched: HinesSchedule, gax, diag, x):
+    """The back substitution of K2 and K3, level by level, in place."""
+    lv, nodes = sched.level_ptr, sched.nodes
+    x[0] = x[0] / diag[0]
+    for L in range(1, sched.depth + 1):
+        for i in nodes[lv[L]:lv[L + 1]]:
+            x[i] = (x[i] + gax[i] * x[sched.parent[i]]) / diag[i]
+
+
+def hines_factor_sched_ref(sched: HinesSchedule, g_axial, d):
+    """K1's elimination in the order of its level schedule: d [C, N] ->
+    d_elim [C, N].  Each value sees the operations of
+    ``core.hines.hines_factor`` in the same order, so the two are equal
+    bit for bit."""
+    gax = torch.as_tensor(g_axial, dtype=d.dtype, device=d.device)
+    w = d.clone()
+    _eliminate(sched, gax, w)
+    return w
+
+
 def hines_solve_factored_sched_ref(sched: HinesSchedule, g_axial, d_elim, b):
     """K2's sweeps in the order of its level schedule: d_elim, b [C, N] ->
     x [C, N].  The multipliers first; the forward sweep deepest level
@@ -87,8 +126,17 @@ def hines_solve_factored_sched_ref(sched: HinesSchedule, g_axial, d_elim, b):
             for i in sched.children[sched.child_ptr[p]:sched.child_ptr[p + 1]]:
                 acc = acc + f[i] * x[i]
             x[p] = acc
-    x[0] = x[0] / d_elim[0]
-    for L in range(1, sched.depth + 1):
-        for i in nodes[lv[L]:lv[L + 1]]:
-            x[i] = (x[i] + gax[i] * x[sched.parent[i]]) / d_elim[i]
+    _back_substitute(sched, gax, d_elim, x)
+    return x
+
+
+def hines_solve_sched_ref(sched: HinesSchedule, g_axial, d, b):
+    """K3's fused solve in the order of its level schedule: d, b [C, N] ->
+    x [C, N].  K1's elimination carrying the right-hand side with the same
+    multipliers, then K2's back substitution on the eliminated diagonal:
+    bit for bit ``core.hines.hines_solve`` and K2's model applied to K1's."""
+    gax = torch.as_tensor(g_axial, dtype=d.dtype, device=d.device)
+    w, x = d.clone(), b.clone()
+    _eliminate(sched, gax, w, x)
+    _back_substitute(sched, gax, w, x)
     return x

@@ -162,12 +162,45 @@ def test_factored_solve_bitwise_in_every_layout(dev, name, N, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["cn", "nc", "factor_rows"])
+@pytest.mark.parametrize("N", [1, 31, 777, 16384, 16421])
+@pytest.mark.parametrize("name", list(K2_MORPHS))
+def test_factor_and_fused_solve_bitwise_in_every_layout(dev, name, N, layout):
+    """K1 and K3, each against its plain version, bitwise, with d and b in
+    K2's three layouts (a contiguous [C, N], a transposed [N, C] and the
+    factor-row slice), for trees of 1, 11, 13, 29 and 61 compartments;
+    the inputs stay untouched."""
+    m = K2_MORPHS[name]()
+    C = m.n_comp
+    n_factors = CellModel(m, device="cpu").n_factors()
+    g = torch.Generator().manual_seed(N * 37 + C)
+    par = torch.as_tensor(m.parent, dtype=torch.int32)
+    gax = torch.as_tensor(m.g_axial)
+    d = hines_assemble(m.parent, gax, torch.rand((N, C), generator=g,
+                                                 dtype=torch.float64) + 0.5)
+    b = torch.randn((N, C), generator=g, dtype=torch.float64)
+    pd, gd = par.to(dev), gax.to(dev)
+    dv = _k2_layout(layout, d.to(dev), n_factors)
+    bv = _k2_layout(layout, b.to(dev), n_factors)
+    build.reset_launches()
+    de = h_ops.hines_factor(pd, gd, dv)
+    x = h_ops.hines_solve(pd, gd, dv, bv)
+    n = build.launches()
+    assert n["hines_factor"] == n["hines_solve"] == 1
+    _eq(de, h_ref.hines_factor_ref(par, gax, d.T))
+    _eq(x, h_ref.hines_solve_ref(par, gax, d.T, b.T))
+    _eq(dv, d.T)
+    _eq(bv, b.T)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C,seed", [(2, 0), (17, 1), (64, 2), (64, 3),
                                     (200, 4), (282, 5)])
 def test_factored_solve_bitwise_on_random_trees(dev, C, seed):
-    """K2 derives its level schedule from parent in every block: on seeded
-    random Hines-ordered trees, from chains to bushes, up to the largest
-    tile (C = 282), bitwise against its plain version and K3 == K2(K1)."""
+    """Each block derives its level schedule from parent: on seeded random
+    Hines-ordered trees, from chains to bushes, up to K2's largest tile
+    (C = 282), K1, K2 and K3 each bitwise against its plain version, and
+    K3 == K2(K1)."""
     rng = np.random.default_rng(seed)
     span = int(rng.integers(1, C))
     parent = [-1] + [int(rng.integers(max(0, i - span), i))
@@ -180,9 +213,42 @@ def test_factored_solve_bitwise_on_random_trees(dev, C, seed):
     b = torch.from_numpy(rng.normal(size=(N, C)))
     pd, gd = par.to(dev), gax.to(dev)
     de = h_ops.hines_factor(pd, gd, d.to(dev).T)
+    _eq(de, h_ref.hines_factor_ref(par, gax, d.T))
     x = h_ops.hines_solve_factored(pd, gd, de, b.to(dev).T)
     _eq(x, h_ref.hines_solve_factored_ref(par, gax, de.cpu(), b.T))
-    _eq(x, h_ops.hines_solve(pd, gd, d.to(dev).T, b.to(dev).T))
+    x3 = h_ops.hines_solve(pd, gd, d.to(dev).T, b.to(dev).T)
+    _eq(x3, h_ref.hines_solve_ref(par, gax, d.T, b.T))
+    _eq(x, x3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,C", [("hines_factor", 786),
+                                      ("hines_solve_factored", 283),
+                                      ("hines_solve", 416)])
+def test_trees_over_a_kernel_tile_are_refused(dev, kernel, C):
+    """A tree one compartment over a kernel's tile limit (K1 785, K2 282,
+    K3 415) is refused with a ValueError naming the limit, and nothing is
+    launched; at the limit it runs, bitwise equal to its plain version."""
+    rng = np.random.default_rng(C)
+    for c, refused in ((C, True), (C - 1, False)):
+        parent = [-1] + [int(rng.integers(max(0, i - 8), i))
+                         for i in range(1, c)]
+        par = torch.as_tensor(parent, dtype=torch.int32)
+        gax = torch.from_numpy(rng.uniform(0.1, 2.0, c))
+        d = hines_assemble(parent, gax, torch.from_numpy(
+            rng.uniform(0.5, 1.5, (40, c)))).T
+        b = torch.from_numpy(rng.normal(size=(c, 40)))
+        args = (d,) if kernel == "hines_factor" else (d, b)
+        build.reset_launches()
+        call = lambda: getattr(h_ops, kernel)(  # noqa: E731
+            par.to(dev), gax.to(dev), *[a.to(dev) for a in args])
+        if refused:
+            with pytest.raises(ValueError, match="at most 232448"):
+                call()
+            assert build.launches()[kernel] == 0
+        else:
+            _eq(call(), getattr(h_ref, f"{kernel}_ref")(par, gax, *args))
+            assert build.launches()[kernel] == 1
 
 
 @pytest.mark.cuda

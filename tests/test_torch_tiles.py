@@ -1,12 +1,13 @@
-"""The Python around the Hopper designs of K2 (``hines_solve_factored``) and
-K6 (``compact_ids``), on the CPU: K2's tile rule against the block's shared
-memory, its level schedule (the schedule-ordered plain solve equals the
-sequential one bit for bit, and the counts by which each block derives the
-schedule give the same order), the dispatchers' choice by device, the CUDA
-wrappers' refusals, and K2's plain version at the main path's factor-row
-layout against the JAX package.  The kernels themselves are held to their
-plain versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
-phases 2 and 5).
+"""The Python around the Hopper designs of the Hines kernels K1
+(``hines_factor``), K2 (``hines_solve_factored``) and K3 (``hines_solve``)
+and of K6 (``compact_ids``), on the CPU: each Hines kernel's tile rule
+against the block's shared memory, their level schedule (the
+schedule-ordered plain versions equal the sequential ones bit for bit, and
+the counts by which each block derives the schedule give the same order),
+the dispatchers' choice by device, the CUDA wrappers' refusals, and the
+plain versions at the main path's layouts against the JAX package.  The
+kernels themselves are held to their plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phases 2, 5 and 8).
 """
 import numpy as np
 import pytest
@@ -66,6 +67,44 @@ def test_tile_bytes_match_the_kernel():
             + len(sch.children) + 1 <= 4 * m.n_comp + 3
 
 
+# each kernel's staged operands and the largest tree its tile takes
+KERNEL_TILES = {"hines_factor": (1, 785), "hines_solve_factored": (3, 282),
+                "hines_solve": (2, 415)}
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_TILES))
+def test_each_kernel_tile_bytes_and_limit(kernel):
+    """Each Hines kernel's tile -- its staged operands as [C][nb + 1]
+    float64 (K1 d; K2 d_elim, b and the multipliers; K3 d and b), g_axial
+    and 6 C + 3 int32 -- fits the block's shared memory up to its largest
+    C, which the main paths' cells (C <= 29) and the card tests' random
+    trees (C <= 282) stay within."""
+    tiles, c_max = KERNEL_TILES[kernel]
+    assert h_cuda.TILES[kernel] == tiles
+    assert h_cuda.max_compartments(kernel) == c_max
+    for nb, C in ((32, 1), (32, 13), (32, 29), (64, 13)):
+        assert h_cuda.tile_smem_bytes(nb, C, tiles) == \
+            8 * tiles * (nb + 1) * C + 8 * C + 4 * (6 * C + 3)
+    assert h_cuda.tile_smem_bytes(32, c_max, tiles) <= h_cuda.SMEM_MAX \
+        < h_cuda.tile_smem_bytes(32, c_max + 1, tiles)
+    for make in MORPHS.values():
+        assert h_cuda.tile_neurons(make().n_comp, kernel) == 32
+    assert h_cuda.tile_neurons(282, kernel) == h_cuda.tile_neurons(
+        c_max, kernel) == 32
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_TILES))
+@pytest.mark.parametrize("over", [1, 2, 1000])
+def test_each_kernel_refuses_a_tree_over_its_limit(kernel, over):
+    """A tree whose tile does not fit is refused with a ValueError that
+    names the limit; so is an empty tree."""
+    C = KERNEL_TILES[kernel][1] + over
+    with pytest.raises(ValueError, match=f"at most {h_cuda.SMEM_MAX}"):
+        h_cuda.tile_neurons(C, kernel)
+    with pytest.raises(ValueError, match="at least one compartment"):
+        h_cuda.tile_neurons(0, kernel)
+
+
 def _random_tree(C, seed):
     """A Hines-ordered tree: parent[i] drawn below i, more or less bushy."""
     rng = np.random.default_rng(seed)
@@ -77,7 +116,8 @@ def _random_tree(C, seed):
 TREES = {**{name: MORPHS[name]().parent for name in MORPHS},
          **{f"random_{C}_{seed}": _random_tree(C, seed)
             for C, seed in ((2, 0), (5, 1), (17, 2), (40, 3), (64, 4),
-                            (64, 5), (100, 6), (200, 7))}}
+                            (64, 5), (100, 6), (200, 7), (282, 8))},
+         "chain_64": [-1] + list(range(63)), "star_64": [-1] + [0] * 63}
 
 
 @pytest.mark.parametrize("name", list(TREES))
@@ -101,6 +141,60 @@ def test_schedule_order_equals_sequential_solve_bitwise(name):
         kids = sched.children[sched.child_ptr[p]:sched.child_ptr[p + 1]]
         assert list(kids) == sorted((i for i in range(1, C)
                                      if parent[i] == p), reverse=True)
+
+
+def _tree_case(parent, N=23):
+    C = len(parent)
+    rng = np.random.default_rng(C + 1000)
+    gax = torch.from_numpy(rng.uniform(0.1, 2.0, C))
+    d = hines_assemble(parent, gax, torch.from_numpy(
+        rng.uniform(0.5, 1.5, (N, C)))).T
+    return gax, d, torch.from_numpy(rng.normal(size=(C, N)))
+
+
+@pytest.mark.parametrize("name", list(TREES))
+def test_factor_and_fused_schedule_orders_equal_sequential_bitwise(name):
+    """K1's and K3's orders on the level schedule -- the elimination deepest
+    level first, each parent adding its children in descending index, with
+    multipliers from the children's final rows; K3 then K2's back
+    substitution -- equal the sequential plain versions bit for bit, and
+    K3's model equals K2's model applied to K1's."""
+    parent = TREES[name]
+    gax, d, b = _tree_case(parent)
+    sched = h_ref.hines_schedule(parent)
+    de = h_ref.hines_factor_sched_ref(sched, gax, d)
+    assert torch.equal(de, h_ref.hines_factor_ref(parent, gax, d))
+    x = h_ref.hines_solve_sched_ref(sched, gax, d, b)
+    assert torch.equal(x, h_ref.hines_solve_ref(parent, gax, d, b))
+    assert torch.equal(x, h_ref.hines_solve_factored_sched_ref(sched, gax,
+                                                                de, b))
+    assert torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("name", ["soma", "ball_and_stick", "branched_2_2",
+                                  "branched_4_2", "random_282_8",
+                                  "chain_64", "star_64"])
+def test_factor_and_fused_schedule_orders_vs_jax(name):
+    """K1's and K3's schedule-ordered plain versions against the JAX
+    package's oracles under x64, within rtol 1e-12, atol 1e-14."""
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from repro.kernels.hines import ref as jh_ref
+
+    parent = TREES[name]
+    gax, d, b = _tree_case(parent, N=37)
+    sched = h_ref.hines_schedule(parent)
+    jp, jg = jnp.asarray(np.asarray(parent, np.int32)), jnp.asarray(gax.numpy())
+    np.testing.assert_allclose(
+        h_ref.hines_factor_sched_ref(sched, gax, d).numpy(),
+        np.asarray(jh_ref.hines_factor_ref(jp, jg, jnp.asarray(d.numpy()))),
+        rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(
+        h_ref.hines_solve_sched_ref(sched, gax, d, b).numpy(),
+        np.asarray(jh_ref.hines_solve_ref(jp, jg, jnp.asarray(d.numpy()),
+                                          jnp.asarray(b.numpy()))),
+        rtol=1e-12, atol=1e-14)
 
 
 @pytest.mark.parametrize("parent", [[], [0], [-1, 1], [-1, 0, 3, 1],
@@ -132,6 +226,35 @@ def test_dispatchers_send_cpu_tensors_to_the_plain_versions(monkeypatch):
     for got, want in zip(ew_ops.compact_ids(mask, 8),
                          ew_ref.compact_ids_ref(mask, 8)):
         assert torch.equal(got, want)
+    assert build.launches() == before
+
+
+@pytest.mark.parametrize("kernel", ["hines_factor", "hines_solve"])
+def test_factor_and_fused_dispatchers_take_the_plain_versions_on_cpu(
+        monkeypatch, kernel):
+    """K1 and K3 on CPU tensors: the plain version, and no launch."""
+    _forbid(monkeypatch, h_ops, f"{kernel}_cuda")
+    m = morphology.branched_tree(2, 2)
+    par = torch.as_tensor(m.parent, dtype=torch.int32)
+    gax, d, b = _tree_case(m.parent, N=9)
+    args = (d,) if kernel == "hines_factor" else (d, b)
+    before = build.launches()
+    assert torch.equal(getattr(h_ops, kernel)(par, gax, *args),
+                       getattr(h_ref, f"{kernel}_ref")(par, gax, *args))
+    assert build.launches() == before
+
+
+@pytest.mark.parametrize("kernel", ["hines_factor", "hines_solve"])
+def test_factor_and_fused_wrappers_refuse_cpu_tensors(kernel):
+    """The trimmed K1 and K3 wrappers fall back to the detailed checks,
+    which name the operand, and launch nothing."""
+    par = torch.zeros(3, dtype=torch.int32)
+    gax = torch.ones(3, dtype=torch.float64)
+    x = torch.ones((3, 5), dtype=torch.float64)
+    args = (x,) if kernel == "hines_factor" else (x, x)
+    before = build.launches()
+    with pytest.raises(ValueError, match="float64 CUDA tensor of shape"):
+        getattr(h_cuda, f"{kernel}_cuda")(par, gax, *args)
     assert build.launches() == before
 
 
