@@ -27,7 +27,9 @@ Phases, each reported on its own lines:
      card, bitwise, at the active path's shapes: its auto caps, the edge
      table of its network, a spike mask and a key batch that the path
      itself produced (with timings, bounds and ``torch.nonzero`` beside
-     K6), and K6 at ragged N on mask views 1-15 bytes off alignment;
+     K6), K6 at ragged N on mask views 1-15 bytes off alignment, and K8
+     also at max_rank 0, on all-equal keys and on batches of the path's
+     pattern at E = 4225, 18000 and 60000 (its chunked staging);
   6. the dense path at N=64 on the card (kernels) and on the CPU (plain
      versions): spike trains and final states bitwise equal (the port
      rounds alike on both, ``repro_torch/core/detmath.py``);
@@ -59,7 +61,10 @@ Phases, each reported on its own lines:
      each round;
  13. the parcel packer K9 against its plain version on the card, bitwise,
      at the SPMD path's shapes (D = 4 ranks, M = 4096, its parcel cap):
-     masks of 0-100 %, a row over the cap and a mask phase 12 produced;
+     masks of 0-100 %, a row over the cap and a mask phase 12 produced
+     (timed in the transport's transposed layout); then D = 1, 3, 4 and 8
+     at M = 4096 and 4097, transposed, in contiguous rows and as views
+     1-15 bytes past an aligned base;
  14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
      the single-host ``run_fap_vardt(step_budget=8)``, and four card ranks
      == four CPU ranks bitwise (spike trains, steps, final states);
@@ -70,7 +75,8 @@ Phases, each reported on its own lines:
      with several query rows, ragged Sq and Skv, bidirectional, groups 1,
      3 and 8, D 16/64/128 (deepseek-7b's and qwen2-72b's heads); times of
      the prefill and of decode at kv_len 256 and 4096 (bf16 in), and of
-     the float32 kernel at the prefill, beside the plain version,
+     the float32 kernel at the prefill (printed only), beside the plain
+     version,
      ``scaled_dot_product_attention`` (a yardstick only) and the bound;
      the decode kernel's device time by kv splits;
  16. the LM serve path at full width: smollm-135m on the card from a
@@ -83,7 +89,9 @@ Phases, each reported on its own lines:
      weights in float32 (K10's float32 kernel) and bf16 compute (its
      decode kernel), a short serve run whose logits agree within a stated
      tolerance, the CPU's greedy picks differing from the card's only
-     where its top two logits lie within it;
+     where its top two logits lie within it; the float32 kernel timed at
+     the shape this run called it with most, at the median kv length of
+     those calls (its ``kernels`` entry);
  18. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path (device busy share,
@@ -687,9 +695,20 @@ def phase_sched_kernels(dev, act):
     n_keys = N * B
     bad = keys.clone()
     bad[::7] = n_keys                                # more invalid keys
-    for name, k in (("path", keys), ("path+invalid", bad)):
-        same(f"segment_rank {name} max_rank={S}",
-             (ew_ops.segment_rank(k, S),), (ew_ref.segment_rank_ref(k, S),))
+    rank_cases = [("path", keys, S), ("path+invalid", bad, S),
+                  ("path", keys, 0), ("all equal", torch.full_like(keys, 7), S)]
+    # longer batches of the wheel's pattern: valid keys target*B+bucket in
+    # the path's share, the rest N*B; E = 18000 stages its keys in one chunk
+    # past 48 KB, E = 60000 in three (past 227 KB)
+    share = float((keys < n_keys).float().mean())
+    for E in (int(keys.shape[0]) + 1, 18000, 60000):
+        k = torch.from_numpy(np.where(gen.random(E) < share,
+                                      gen.integers(0, n_keys, E), n_keys)
+                             .astype(np.int32)).to(dev)
+        rank_cases.append((f"E={E}", k, S))
+    for name, k, mr in rank_cases:
+        same(f"segment_rank {name} max_rank={mr}",
+             (ew_ops.segment_rank(k, mr),), (ew_ref.segment_rank_ref(k, mr),))
     Ek = int(keys.shape[0])
     n_valid = int((keys < n_keys).sum())
     ops = rank_compares(keys.cpu().numpy(), S)
@@ -697,7 +716,9 @@ def phase_sched_kernels(dev, act):
         0.0, lambda: ew_ops.segment_rank(keys, S),
         lambda: ew_ref.segment_rank_ref(keys, S), 8 * Ek, ops, INT32_OPS)
     say("sched-kernels", f"segment_rank E={Ek} ({n_valid} valid keys "
-        f"target*{B}+bucket, the rest N*B) max_rank={S}: bitwise; "
+        f"target*{B}+bucket, the rest N*B) max_rank={S}, and "
+        f"{[(n, int(k.shape[0]), mr) for n, k, mr in rank_cases[2:]]}"
+        f" (name, E, max_rank): bitwise; "
         f"{fmt_row(rows['segment_rank'])}; {ops} compares needed (of "
         f"{Ek * (Ek - 1) // 2} pairs) at {INT32_OPS:.3g} int32 ops/s")
     return rows
@@ -1182,10 +1203,29 @@ def phase_parcel_kernel(dev, path_mask):
     over = torch.from_numpy(gen.random((D, M)) < 0.05).to(dev)
     over[1, : cap + 100] = True                   # one row past the cap
     masks["row over cap"] = over
-    masks["spmd path"] = path_mask.to(dev)
-    for name, m in masks.items():
-        got = ew_ops.spike_compact(m, vals, cap)
-        want = ew_ref.compact_rows_ref(m, vals, cap)
+    # phase 12's busiest parcel mask, in the transport's layout (the
+    # transpose of contiguous [M, D] bytes) and in contiguous rows
+    masks["spmd path"] = path_mask.to(dev).T.contiguous().T
+    masks["spmd path, rows"] = path_mask.to(dev).contiguous()
+    cases = [(name, m, vals, cap) for name, m in masks.items()]
+    # D = 1, 3, 4 and 8 in the transport's transposed layout, in contiguous
+    # rows and as a transposed view 1-15 bytes past an aligned base; M = M
+    # and M + 1 (no multiple of 16 / D); caps below and above the rows
+    for d in (1, 3, 4, 8):
+        for m_len in (M, M + 1):
+            for layout in ("transposed", "contiguous", "offset"):
+                off = int(gen.integers(1, 16)) if layout == "offset" else 0
+                buf = torch.from_numpy(gen.random(m_len * d + off) < 0.3)
+                mm = buf.to(dev)[off:].view(m_len, d).T
+                if layout == "contiguous":
+                    mm = mm.contiguous()
+                vv = torch.from_numpy(gen.random(m_len)).to(dev)
+                for c in (64, cap):
+                    cases.append((f"D={d} M={m_len} {layout} cap={c}", mm,
+                                  vv[None, :].expand(d, m_len), c))
+    for name, m, v, c in cases:
+        got = ew_ops.spike_compact(m, v, c)
+        want = ew_ref.compact_rows_ref(m, v, c)
         for g, w in zip(got, want):
             if not torch.equal(g, w):
                 raise AssertionError(f"compact_rows mask={name}: kernel "
@@ -1199,8 +1239,10 @@ def phase_parcel_kernel(dev, path_mask):
                      lambda: ew_ref.compact_rows_ref(m, vals, cap), nbytes,
                      D * M, INT32_OPS)
     say("parcel-kernel", f"compact_rows D={D} M={M} cap={cap}, masks "
-        f"{list(masks)} (path mask: {int(m.sum())} set, {kept} kept): "
-        f"bitwise; {fmt_row(row)}, {nbytes} bytes")
+        f"{list(masks)} (path mask: {int(m.sum())} set, {kept} kept), and "
+        f"{len(cases) - len(masks)} cases of D 1/3/4/8 x M {M}/{M + 1} x "
+        f"transposed/contiguous/offset x cap 64/{cap}: bitwise; "
+        f"{fmt_row(row)}, {nbytes} bytes")
     return {"compact_rows": row}
 
 
@@ -1302,17 +1344,24 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 
 
 def _attn_row(dev, dtype, case):
-    """Times K10 on ``case`` (bf16 or float32 in, float32 out) beside its
-    plain version and ``scaled_dot_product_attention`` with its bound."""
-    from repro_torch.kernels.attention import ops as a_ops
-    from repro_torch.kernels.attention import ref as a_ref
+    """Times K10 on ``case`` (bf16 or float32 in, float32 out)."""
     name, B, H, Hkv, Sq, Skv, D, causal, kv_len = case
     q, k, v = _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D)
-    kw = dict(causal=causal, offset=None if kv_len is None else
-              kv_len - Sq, kv_len=kv_len, out_dtype=torch.float32)
+    return _attn_row_on(name, q, k, v, causal,
+                        None if kv_len is None else kv_len - Sq, kv_len)
+
+
+def _attn_row_on(name, q, k, v, causal, offset, kv_len):
+    """Times K10 on these inputs (float32 out) beside its plain version
+    and ``scaled_dot_product_attention``, with its bound."""
+    from repro_torch.kernels.attention import ops as a_ops
+    from repro_torch.kernels.attention import ref as a_ref
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, offset=offset, kv_len=kv_len,
+              out_dtype=torch.float32)
     got = a_ops.flash_attention(q, k, v, **kw)
-    err, _ = check_attention(name, got, q, k, v, causal, kw["offset"],
-                             kv_len)
+    err, _ = check_attention(name, got, q, k, v, causal, offset, kv_len)
     kv = kv_len or Skv
     ks, vs = k[:, :, :kv], v[:, :, :kv]
     flops = (2 if causal and Sq > 1 else 4) * B * H * Sq * kv * D
@@ -1322,17 +1371,48 @@ def _attn_row(dev, dtype, case):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     row = kernel_row(
         err, lambda: a_ops.flash_attention(q, k, v, **kw),
-        lambda: a_ref.flash_attention_ref(q, k, v, kw["causal"],
-                                          kw["offset"], kv_len,
+        lambda: a_ref.flash_attention_ref(q, k, v, causal, offset, kv_len,
                                           torch.float32),
-        nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+        nbytes, flops,
+        BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS,
         library=lambda: sdpa(q, ks, vs, is_causal=causal and Sq > 1,
                              enable_gqa=True))
     say("attention", f"{name} B={B} H={H} Hkv={Hkv} Sq={Sq} kv={kv} D={D} "
-        f"{str(dtype)[6:]}->float32: K10 {fmt_row(row)} (library: "
+        f"{str(q.dtype)[6:]}->float32: K10 {fmt_row(row)} (library: "
         f"scaled_dot_product_attention); "
         f"{flops / row['device_ms'] / 1e9:.1f} TFLOP/s on the device")
     return row
+
+
+class _AttnRecorder:
+    """Keeps copies of K10's inputs, call by call, grouped by shape (q's
+    and k's), so phase 17 can time the kernel at its own geometry.  The
+    wrapped dispatcher still launches and counts as before."""
+
+    def __init__(self):
+        from repro_torch.kernels.attention import ops as a_ops
+        self.ops, self.real, self.seen = a_ops, a_ops.flash_attention, {}
+
+    def __enter__(self):
+        def rec(q, k, v, causal=True, offset=None, kv_len=None,
+                out_dtype=None):
+            self.seen.setdefault((tuple(q.shape), tuple(k.shape)), []).append(
+                (q.clone(), k.clone(), v.clone(), causal, offset, kv_len))
+            return self.real(q, k, v, causal=causal, offset=offset,
+                             kv_len=kv_len, out_dtype=out_dtype)
+
+        self.ops.flash_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+    def commonest(self):
+        """(calls, inputs): the shape called most often, and its call with
+        the median kv length (a decode step's cache fill varies)."""
+        calls = max(self.seen.values(), key=len)
+        by_kv = sorted(calls, key=lambda c: c[5] or c[1].shape[2])
+        return len(calls), by_kv[len(by_kv) // 2]
 
 
 def phase_attention(dev):
@@ -1379,8 +1459,9 @@ def phase_attention(dev):
     cases = {c[0]: c for c in ATTN_CASES}
     rows = {row: _attn_row(dev, torch.bfloat16, cases[case])
             for row, case in ATTN_TIMED}
-    rows["flash_attention_f32"] = _attn_row(dev, torch.float32,
-                                            cases["prefill"])
+    # the float32 kernel at the prefill shape; the kernels line takes its
+    # row at phase 17's own shapes, where its launches are counted
+    _attn_row(dev, torch.float32, cases["prefill"])
     for case in ("decode kv_len=256", "decode kv_len=4096"):
         B, H, Hkv, Sq, Skv, D, _, kv = cases[case][1:]
         q, k, v = _attn_inputs(dev, torch.bfloat16, B, H, Hkv, Sq, Skv, D)
@@ -1510,8 +1591,9 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
 
         params = lm.init_params(cfg, 0, device=dev)
         build.reset_launches()
-        card = serve.serve_requests(cfg, params, queue, slots, max_new,
-                                    cache_len, device=dev, pick=record)
+        with _AttnRecorder() as calls:
+            card = serve.serve_requests(cfg, params, queue, slots, max_new,
+                                        cache_len, device=dev, pick=record)
         counts = build.launches()
         if counts[kernel[cd]] != counts["flash_attention"] or \
                 not counts["flash_attention"]:
@@ -1548,6 +1630,16 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
         out[cd] = dict(steps=card.decode_steps, max_abs_err=worst, tol=tol,
                        picks_differed=differ, picks=len(seen) * slots,
                        kernel=kernel[cd], launches=counts[kernel[cd]])
+        if cd == "float32":
+            # K10's float32 kernel at this path's own shapes: the shape it
+            # was called with most, at the median kv length of those calls
+            n, (q, k, v, causal, offset, kv_len) = calls.commonest()
+            shapes = {f"q{a} k{b}": len(c) for (a, b), c in
+                      calls.seen.items()}
+            say("lm-vs-cpu", f"float32 K10 calls by shape {shapes}; timed at "
+                f"the commonest ({n} calls), at its median kv length")
+            out[cd]["row"] = _attn_row_on(f"reduced {LM_ARCH} float32",
+                                          q, k, v, causal, offset, kv_len)
         say("lm-vs-cpu", f"reduced {LM_ARCH} compute {cd}: {requests} "
             f"requests, {card.decode_steps} decode steps, logits max abs err "
             f"{worst:.3e} (tol {tol:.3e}), {counts[kernel[cd]]} launches "
@@ -1661,11 +1753,12 @@ def main(argv=None):
     rows.update(phase_parcel_kernel(dev, path_mask))
     phase_spmd_small(dev)
     attn_rows = phase_attention(dev)
-    rows.update({k: attn_rows[k] for k in K10_KERNELS})
+    rows.update(attn_rows)
     serve_launches, lm_stats = phase_serve(dev, smi)
     launches.update(serve_launches)
     lm_vs_cpu = phase_lm_card_vs_cpu(dev)
     launches["flash_attention_f32"] = lm_vs_cpu["float32"]["launches"]
+    rows["flash_attention_f32"] = lm_vs_cpu["float32"].pop("row")
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",

@@ -1,5 +1,5 @@
-"""K1, K2, K3 and K6 of the port, two source trees in turns on one NVIDIA
-card.
+"""K1, K2, K3, K6, K8 and K9 of the port, two source trees in turns on one
+NVIDIA card.
 
     python3 scripts/kernel_ab.py BASE_TREE [NEW_TREE] [--order ABBA]
                                  [--t-end MS]
@@ -16,7 +16,15 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   as transposed ``[N, C]`` rows; K3 ``hines_solve`` on transposed ``[N,
   C]`` rows of the branched (``k3``) and the ball-and-stick cell (C = 11,
   ``k3_c11``); K6 ``compact_ids`` on a 50 % mask of N = 16384 lanes with
-  cap = N (the active path's auto cap).  For each: ``ms`` (CUDA events
+  cap = N (the active path's auto cap); K8 ``segment_rank`` on a key batch
+  as the active path's compact fan-out makes it (128 rows of the network's
+  out-edge table, 123 of them a spiking neuron's: ``post * B + bucket``
+  with B = 16 for each real edge, the invalid key N * B for the padding,
+  E = 128 x the largest out-degree) at max_rank 19; K9 ``spike_compact``
+  at D = 4, M = 4096, cap 2048 on the transport's transposed mask
+  (strides (1, D)) at the SPMD path's density (1436 of 16384 set) and a
+  broadcast value row.  Inputs come from one seed, the same in both
+  trees.  For each: ``ms`` (CUDA events
   around each of 25 calls, median), ``device_ms`` (a CUDA graph of 50
   launches, median of 5 replays, over 50), ``host_us`` (wall of 1000 calls
   back to back, median of 5: the wrapper's host work), and ``bitwise``
@@ -27,9 +35,9 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
 * ``dense``, ``active`` and ``2a``: ``chip_smoke.py`` phase 3's dense 2c
   run, phase 4's active-set run (probe excluded) and phase 9's 2a run at
   ``--t-end`` ms (0 skips them): wall per round (2c) or per window (2a),
-  with their K1/K2/K3/K6 launches.  These are host-bound; they are
+  with their K1/K2/K3/K6/K8 launches.  These are host-bound; they are
   reported, and no gain is claimed from them;
-* ``ptxas``: registers, shared memory and spills of the four kernels, from
+* ``ptxas``: registers, shared memory and spills of the six kernels, from
   nvcc's ``-Xptxas -v`` (runs that built the library).
 
 One JSON line per run, then the card's name and power limit.  Compare two
@@ -53,6 +61,8 @@ import numpy as np
 import torch
 import chip_smoke as cs
 from repro_torch.core.exec_bsp import make_bsp_fixed_runner
+from repro_torch.core.exec_common import out_edge_table
+from repro_torch.core.network import make_network
 from repro_torch.core.morphology import ball_and_stick, branched_tree
 from repro_torch.kernels import build
 from repro_torch.kernels.event_wheel import ops as ew_ops
@@ -115,11 +125,34 @@ out["nonzero"] = dict(ms=cs.cuda_ms(lambda: torch.nonzero(mask)),
                       device_ms=cs.profiled_device_ms(
                           lambda: torch.nonzero(mask)))
 
+# K8's keys as the active path's compact fan-out makes them: 123 spiking
+# neurons' rows of the out-edge table in a batch of 128 rows (the auto
+# spike cap), key = post * B + bucket for each real edge, N * B for the
+# table's padding and the empty rows
+gen = np.random.default_rng(19)
+B, S = 16, 19
+net = make_network(N, k_in=cs.K_IN, seed=cs.NET_SEED)
+rows = out_edge_table(net)
+n_edges = int(net.post.shape[0])
+batch = np.full((128, rows.shape[1]), n_edges)
+batch[:123] = rows[gen.choice(N, 123, replace=False)]
+real = batch < n_edges
+post = np.asarray(net.post)[np.minimum(batch, n_edges - 1)]
+key = np.where(real, post * B + gen.integers(0, B, batch.shape), N * B)
+key = torch.from_numpy(key.reshape(-1).astype(np.int32)).to(dev)
+out["k8"] = timed(lambda: ew_ops.segment_rank(key, S),
+                  ew_ref.segment_rank_ref(key, S))
+D, M, cap = 4, 4096, 2048
+pm = torch.from_numpy(gen.random((M, D)) < 1436 / (D * M)).to(dev).T
+pv = torch.from_numpy(gen.random(M) * 20.0).to(dev)[None, :].expand(D, M)
+out["k9"] = timed(lambda: ew_ops.spike_compact(pm, pv, cap),
+                  ew_ref.compact_rows_ref(pm, pv, cap))
+
 
 def launches():
     n = build.launches()
     return {k: n[k] for k in ("hines_factor", "hines_solve_factored",
-                              "hines_solve", "compact_ids")}
+                              "hines_solve", "compact_ids", "segment_rank")}
 
 
 for name, knobs in (("dense", {}), ("active", dict(wheel="auto",
@@ -157,14 +190,17 @@ ptxas = {}
 for src, kern in (("hines", "hines_factor_kernel"),
                   ("hines", "hines_solve_factored_kernel"),
                   ("hines", "hines_solve_kernel"),
-                  ("compact", "compact_ids_kernel")):
+                  ("compact", "compact_ids_kernel"),
+                  ("compact", "compact_rows_kernel"),
+                  ("segment_rank", "segment_rank_kernel")):
     entry = None
     for line in build.ptxas_log(src).splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif entry and kern in entry and ("registers" in line
                                           or "spill" in line):
-            ptxas.setdefault(kern, []).append(
+            # templated kernels: one entry per instantiation
+            ptxas.setdefault(kern, {}).setdefault(entry, []).append(
                 line.split(":", 2)[-1].strip())
 out["ptxas"] = ptxas
 print("RESULT " + json.dumps(out))

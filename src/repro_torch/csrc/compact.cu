@@ -45,13 +45,29 @@
 // and equals the cumsum + scatter of the plain version
 // (repro_torch/kernels/event_wheel/ref.py) bit for bit.
 //
-// K7 and K9 keep the first port's block scan (block_compact): one block of
-// 1024 threads walks a row in 1024-lane chunks, each warp ranks its set
-// lanes with __ballot_sync/__popc, warp 0 scans the 32 warp counts and a
-// shared carry holds the running count between chunks.  K7's row gather
-// then runs in the same block, one thread per (slot, column) pair; K9
-// runs one block per row and copies the values, so both stay bitwise.
-// Moving them onto K6's one-barrier pass is later work.
+// K9 runs the same pass, one block per row (compact_row, shared with K6),
+// and reads the mask as the transport stores it.  The transport's [D, M]
+// mask is the transpose of contiguous [M, D] bytes (strides (1, D)): at D
+// = 4 and M = 4096, 16,384 contiguous bytes, one pass of 1024 threads x 16
+// bytes.  Block d reads all of them, 16 bytes a thread (16 / D columns x D
+// rows), and keeps row d's 16 / D bits (the first port read one byte a
+// thread through the strides and walked each row in four chunks of four
+// barriers).  The D blocks re-read the same 16 KB from L2, and in return
+// each writes and sentinel-fills only its row, on its own SM.  Contiguous
+// rows take K6's reading (per row, any offset); any other strides, D that
+// does not divide 16, or a base off 16-byte alignment are read byte by byte
+// through the strides.  A lane's values for its write rounds are loaded,
+// coalesced, before the barrier, through the values' strides (the
+// broadcast spike-time row is never made whole), so no load waits behind
+// the scan.  The sentinel fills (M in idx, 0.0 in vals) use 16-byte stores.
+// ref.compact_rows_packed_ref models the pass on the CPU.
+//
+// K7 keeps the first port's block scan (block_compact): one block of 1024
+// threads walks the mask in 1024-lane chunks, each warp ranks its set lanes
+// with __ballot_sync/__popc, warp 0 scans the 32 warp counts and a shared
+// carry holds the running count between chunks; the row gather then runs
+// in the same block, one thread per (slot, column) pair.  Moving it onto
+// the one-barrier pass is later work.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -107,41 +123,96 @@ __device__ void compact_block(const uint8_t* __restrict__ mask, int N,
   if (threadIdx.x == 0) *count = total;
 }
 
-constexpr int kPassLanes = kThreads * 16;     // lanes of one K6 pass
-
 // Bit j of the result: byte j of w is nonzero.
 __device__ __forceinline__ unsigned nonzero_bits4(unsigned w) {
   return (((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24) & 0xfu;
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
-                   int32_t* __restrict__ ids, int32_t* __restrict__ count) {
+// Bit j of the result: byte v0 + j of the 16-byte aligned base is nonzero,
+// for the bytes v0 + j in [lo, hi).  A group wholly inside is one 16-byte
+// load; a group that straddles lo or hi is read byte by byte inside.
+__device__ __forceinline__ unsigned group_bits(const uint8_t* __restrict__ base,
+                                               long long v0, long long lo,
+                                               long long hi) {
+  if (v0 >= lo && v0 + 16 <= hi) {
+    const uint4 w = *reinterpret_cast<const uint4*>(base + v0);
+    return nonzero_bits4(w.x) | nonzero_bits4(w.y) << 4 |
+           nonzero_bits4(w.z) << 8 | nonzero_bits4(w.w) << 12;
+  }
+  unsigned bits = 0;
+  for (int j = 0; j < 16; ++j) {
+    const long long v = v0 + j;
+    if (v >= lo && v < hi && base[v] != 0) bits |= 1u << j;
+  }
+  return bits;
+}
+
+// Bit k of the result: bit k * D + d of a 16-byte group's nonzero bits,
+// i.e. row d of the group's 16 / D interleaved [*, D] columns.
+template <int D>
+__device__ __forceinline__ unsigned row_bits(unsigned nz, int d) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < 16 / D; ++k) bits |= ((nz >> (k * D + d)) & 1u) << k;
+  return bits;
+}
+
+// value in p[0, n): scalar up to a 16-byte boundary, then 16-byte stores,
+// then the scalar rest.
+template <class T>
+__device__ void fill_slots(T* p, int n, T value) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  const int head = min(
+      n, (int)(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / sizeof(T)));
+  if (tid < head) p[tid] = value;
+  const int body = (n - head) / kPer;
+  union { T t[kPer]; uint4 u; } w;
+  for (int k = 0; k < kPer; ++k) w.t[k] = value;
+  uint4* vec = reinterpret_cast<uint4*>(p + head);
+  for (int q = tid; q < body; q += kThreads) vec[q] = w.u;
+  for (int q = head + kPer * body + tid; q < n; q += kThreads) p[q] = value;
+}
+
+// The one-barrier pass of one row by one block (K6's design).  Lane i of
+// the row is v = i + shift in pass coordinates; a pass covers kThreads *
+// LPT lanes, LPT consecutive ones a thread, and bits_of(v0) gives their
+// set mask (bit k: lane v0 + k).  Writes ids[pos] = i -- and with kVals
+// vals[pos] = vrow[i * vs1] -- for each set lane whose rank pos is below
+// cap; returns the number of set lanes, in every thread.  A warp writes
+// its 32 * LPT lanes in LPT rounds of 32 (lane l of round r: lane 32 r + l
+// of the warp, its bit taken from the owning thread by a shuffle); the
+// values of a lane's rounds are loaded before the barrier, coalesced, so
+// no load waits behind the scan.
+template <int LPT, bool kVals, class BitsOf>
+__device__ __forceinline__ int compact_row(BitsOf bits_of, int shift,
+                                           long long N, int cap,
+                                           int32_t* __restrict__ ids,
+                                           const double* __restrict__ vrow,
+                                           long long vs1,
+                                           double* __restrict__ vals) {
+  constexpr long long kPass = (long long)kThreads * LPT;
   __shared__ int warp_count[2][kWarps];         // by pass parity
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
-  // mask[i] is byte v = i + shift of the 16-byte aligned base
-  const int shift = (int)(reinterpret_cast<uintptr_t>(mask) & 15);
-  const uint8_t* base = mask - shift;
-  const long long end = (long long)shift + N;
+  const long long end = shift + N;
   int carry = 0;                                // set lanes of earlier passes
-  for (long long v_pass = 0; N > 0 && v_pass < end; v_pass += kPassLanes) {
-    const long long v0 = v_pass + 16LL * tid;
-    unsigned bits = 0;                          // bit j: lane v0 + j is set
-    if (v0 >= shift && v0 + 16 <= end) {
-      const uint4 w = *reinterpret_cast<const uint4*>(base + v0);
-      bits = nonzero_bits4(w.x) | nonzero_bits4(w.y) << 4 |
-             nonzero_bits4(w.z) << 8 | nonzero_bits4(w.w) << 12;
-    } else if (v0 < end) {                      // the head or the tail group
-      for (int j = 0; j < 16; ++j) {
-        const long long v = v0 + j;
-        if (v >= shift && v < end && base[v] != 0) bits |= 1u << j;
+  for (long long v_pass = 0; N > 0 && v_pass < end; v_pass += kPass) {
+    const long long i0 = v_pass - shift + 32LL * LPT * warp + lane;
+    double val[LPT];                            // round r: lane i0 + 32 r
+    if constexpr (kVals) {
+#pragma unroll
+      for (int r = 0; r < LPT; ++r) {
+        const long long i = i0 + 32 * r;
+        val[r] = i >= 0 && i < N ? vrow[i * vs1] : 0.0;
       }
     }
+    const long long v0 = v_pass + (long long)LPT * tid;
+    const unsigned bits = v0 < end ? bits_of(v0) : 0u;
     const int wsum = (int)__reduce_add_sync(0xffffffffu, __popc(bits));
-    int* counts = warp_count[(v_pass / kPassLanes) & 1];
+    int* counts = warp_count[(v_pass / kPass) & 1];
     if (lane == 0) counts[warp] = wsum;
     __syncthreads();
     int incl = counts[lane];                    // every warp scans the 32
@@ -151,29 +222,36 @@ compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
     }
     int run = carry + __shfl_sync(0xffffffffu, incl, warp) - wsum;
     carry += __shfl_sync(0xffffffffu, incl, 31);
-    // the warp's lanes v_pass + 512 warp + [0, 512), 32 per round
-    const int i0 = (int)(v_pass - shift) + 512 * warp + lane;
-    for (int r = 0; r < 16 && wsum > 0 && run < cap; ++r) {
-      const unsigned m = __shfl_sync(0xffffffffu, bits, 2 * r + (lane >> 4));
-      const bool set = (m >> (lane & 15)) & 1u;
+#pragma unroll
+    for (int r = 0; r < LPT; ++r) {
+      if (wsum == 0 || run >= cap) break;       // uniform in the warp
+      const int l = 32 * r + lane;
+      const unsigned m = __shfl_sync(0xffffffffu, bits, l / LPT);
+      const bool set = (m >> (l % LPT)) & 1u;
       const unsigned ballot = __ballot_sync(0xffffffffu, set);
       const int pos = run + __popc(ballot & below);
-      if (set && pos < cap) ids[pos] = i0 + 32 * r;
+      if (set && pos < cap) {
+        ids[pos] = (int)(i0 + 32 * r);
+        if constexpr (kVals) vals[pos] = val[r];
+      }
       run += __popc(ballot);
     }
   }
-  // the sentinel N in slots [min(count, cap), cap): scalar up to a 16-byte
-  // boundary, then 16-byte stores, then the scalar rest
-  int32_t* rest = ids + min(carry, cap);
-  const int n_rest = cap - min(carry, cap);
-  const int head = min(
-      n_rest, (int)((16 - (reinterpret_cast<uintptr_t>(rest) & 15)) & 15) / 4);
-  const int body = (n_rest - head) / 4;
-  if (tid < head) rest[tid] = N;
-  int4* vec = reinterpret_cast<int4*>(rest + head);
-  for (int q = tid; q < body; q += kThreads) vec[q] = make_int4(N, N, N, N);
-  for (int q = head + 4 * body + tid; q < n_rest; q += kThreads) rest[q] = N;
-  if (tid == 0) *count = carry;
+  return carry;
+}
+
+__global__ void __launch_bounds__(kThreads)
+compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
+                   int32_t* __restrict__ ids, int32_t* __restrict__ count) {
+  // mask[i] is byte i + shift of the 16-byte aligned base
+  const int shift = (int)(reinterpret_cast<uintptr_t>(mask) & 15);
+  const uint8_t* base = mask - shift;
+  const long long end = (long long)shift + N;
+  const int total = compact_row<16, false>(
+      [&](long long v0) { return group_bits(base, v0, shift, end); }, shift,
+      N, cap, ids, nullptr, 0, nullptr);
+  fill_slots(ids + min(total, cap), cap - min(total, cap), N);
+  if (threadIdx.x == 0) *count = total;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -190,28 +268,65 @@ compact_gather_kernel(const uint8_t* __restrict__ mask, int N,
   }
 }
 
+// K9's three readings of the [D, M] mask: rows interleaved as the
+// contiguous [M, D] bytes of a transposed view (strides (1, D), 16 % D ==
+// 0, a 16-byte aligned base), contiguous rows (stride (*, 1)), and any
+// other strides, byte by byte.
+enum Layout { kPacked, kRows, kStrided };
+
+template <Layout L, int kD>
 __global__ void __launch_bounds__(kThreads)
 compact_rows_kernel(const uint8_t* __restrict__ mask, long long ms0,
                     long long ms1, const double* __restrict__ values,
                     long long vs0, long long vs1, int M, int cap,
                     int32_t* __restrict__ idx, double* __restrict__ vals,
                     int32_t* __restrict__ count) {
-  const long long d = blockIdx.x;
+  const int d = blockIdx.x;
   const uint8_t* mrow = mask + d * ms0;
   const double* vrow = values + d * vs0;
-  int32_t* irow = idx + d * cap;
-  double* orow = vals + d * cap;
-  const int total = block_compact(
-      M, cap, [&](int i) { return mrow[(long long)i * ms1] != 0; },
-      [&](int pos, int i) {
-        irow[pos] = i;
-        orow[pos] = vrow[(long long)i * vs1];
-      });
-  for (int r = min(total, cap) + threadIdx.x; r < cap; r += kThreads) {
-    irow[r] = M;
-    orow[r] = 0.0;
+  int32_t* irow = idx + (long long)d * cap;
+  double* orow = vals + (long long)d * cap;
+  int total;
+  if constexpr (L == kPacked) {
+    // thread t of a pass reads 16-byte group t: 16 / kD columns x kD rows
+    const long long bytes = (long long)kD * M;
+    total = compact_row<16 / kD, true>(
+        [=](long long v0) {
+          return row_bits<kD>(group_bits(mask, v0 * kD, 0, bytes), d);
+        },
+        0, M, cap, irow, vrow, vs1, orow);
+  } else if constexpr (L == kRows) {
+    const int shift = (int)(reinterpret_cast<uintptr_t>(mrow) & 15);
+    const uint8_t* base = mrow - shift;
+    const long long end = (long long)shift + M;
+    total = compact_row<16, true>(
+        [&](long long v0) { return group_bits(base, v0, shift, end); }, shift,
+        M, cap, irow, vrow, vs1, orow);
+  } else {
+    total = compact_row<16, true>(
+        [&](long long v0) {
+          unsigned bits = 0;
+          for (int j = 0; j < 16; ++j)
+            if (v0 + j < M && mrow[(v0 + j) * ms1] != 0) bits |= 1u << j;
+          return bits;
+        },
+        0, M, cap, irow, vrow, vs1, orow);
   }
+  const int kept = min(total, cap);
+  fill_slots(irow + kept, cap - kept, M);
+  fill_slots(orow + kept, cap - kept, 0.0);
   if (threadIdx.x == 0) count[d] = total;
+}
+
+template <Layout L, int kD = 1>
+int launch_rows(int D, cudaStream_t stream, const void* mask, long long ms0,
+                long long ms1, const void* values, long long vs0,
+                long long vs1, int M, int cap, void* idx, void* vals,
+                void* count) {
+  compact_rows_kernel<L, kD><<<D, kThreads, 0, stream>>>(
+      (const uint8_t*)mask, ms0, ms1, (const double*)values, vs0, vs1, M, cap,
+      (int32_t*)idx, (double*)vals, (int32_t*)count);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -238,8 +353,18 @@ extern "C" int compact_rows_launch(const void* mask, long long ms0,
                                    long long vs0, long long vs1, int D, int M,
                                    int cap, void* idx, void* vals, void* count,
                                    void* stream) {
-  compact_rows_kernel<<<D, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, ms0, ms1, (const double*)values, vs0, vs1, M, cap,
-      (int32_t*)idx, (double*)vals, (int32_t*)count);
-  return (int)cudaGetLastError();
+  if (D <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool packed = ms0 == 1 && ms1 == D &&
+                      (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  const auto args = [&](auto launch) {
+    return launch(D, s, mask, ms0, ms1, values, vs0, vs1, M, cap, idx, vals,
+                  count);
+  };
+  if (packed && D == 2) return args(launch_rows<kPacked, 2>);
+  if (packed && D == 4) return args(launch_rows<kPacked, 4>);
+  if (packed && D == 8) return args(launch_rows<kPacked, 8>);
+  if (packed && D == 16) return args(launch_rows<kPacked, 16>);
+  if (ms1 == 1) return args(launch_rows<kRows>);
+  return args(launch_rows<kStrided>);
 }

@@ -15,8 +15,10 @@
 
 Each wrapper checks device, type, shape and contiguity, allocates its
 outputs, launches on the current stream and adds one to its launch count.
-K6's wrapper, on the active path's every round, checks in one expression,
-allocates ids and count as one buffer and keeps its typed launcher.
+The wrappers of K6, K8 and K9, which run on the active and the SPMD paths'
+every round, check in one expression (the detailed errors only when it
+fails) and pass raw ``data_ptr()``s to a cached typed launcher; K6
+allocates ids and count as one buffer.
 """
 from __future__ import annotations
 
@@ -137,21 +139,46 @@ def compact_gather_cuda(mask, table, cap: int, fill: int):
     return ids, rows, cnt
 
 
-def segment_rank_cuda(key, max_rank: int):
-    """key i32[E] -> rank i32[E]: earlier equal keys, clipped at max_rank."""
+def _check_key(key, max_rank: int):
     if not key.is_cuda or key.dtype != torch.int32 or key.dim() != 1 \
             or not key.is_contiguous():
         raise ValueError("key must be a contiguous int32[E] CUDA tensor")
     if max_rank < 0:
         raise ValueError(f"max_rank must be >= 0, got {max_rank}")
-    dev = key.device
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_rank_launch():
+    return _lib("segment_rank").segment_rank_launch
+
+
+def segment_rank_cuda(key, max_rank: int):
+    """key i32[E] -> rank i32[E]: earlier equal keys, clipped at max_rank."""
+    if not (key.is_cuda and key.dtype == torch.int32 and key.dim() == 1
+            and key.is_contiguous() and max_rank >= 0):
+        _check_key(key, max_rank)
     rank = torch.empty_like(key)
-    err = _lib("segment_rank").segment_rank_launch(
-        build.ptr(key), key.shape[0], int(max_rank), build.ptr(rank),
-        build.stream_ptr(dev))
+    err = _segment_rank_launch()(key.data_ptr(), key.shape[0], int(max_rank),
+                                 rank.data_ptr(), build.stream_ptr(key.device))
     build.check(err, "segment_rank")
     build.count("segment_rank")
     return rank
+
+
+def _check_rows(mask, values, cap: int):
+    if not mask.is_cuda or mask.dtype != torch.bool or mask.dim() != 2:
+        raise ValueError("mask must be a bool[D, M] CUDA tensor")
+    if values.dtype != torch.float64 or values.shape != mask.shape \
+            or values.device != mask.device:
+        raise ValueError("values must be a float64[D, M] tensor on the "
+                         "mask's device")
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_rows_launch():
+    return _lib("compact").compact_rows_launch
 
 
 def compact_rows_cuda(mask, values, cap: int):
@@ -159,25 +186,25 @@ def compact_rows_cuda(mask, values, cap: int):
     D included) -> (idx i32[D, cap], vals f64[D, cap], count i32[D]): each
     row's first ``cap`` kept columns in column order (sentinel M) and
     their values (0 in empty slots), and the kept count per row."""
-    if not mask.is_cuda or mask.dtype != torch.bool or mask.dim() != 2:
-        raise ValueError("mask must be a bool[D, M] CUDA tensor")
+    if not (mask.is_cuda and mask.dtype == torch.bool and mask.dim() == 2
+            and values.dtype == torch.float64 and values.shape == mask.shape
+            and values.device == mask.device and cap >= 1):
+        _check_rows(mask, values, cap)
     D, M = mask.shape
+    cap = int(cap)
     dev = mask.device
-    if values.dtype != torch.float64 or tuple(values.shape) != (D, M) \
-            or values.device != dev:
-        raise ValueError("values must be a float64[D, M] tensor on the "
-                         "mask's device")
-    if cap < 1:
-        raise ValueError(f"cap must be at least 1, got {cap}")
+    # three allocations: one shared int32 buffer costs more in the two
+    # views it needs than the allocation it saves
     idx = torch.empty((D, cap), dtype=torch.int32, device=dev)
     vals = torch.empty((D, cap), dtype=torch.float64, device=dev)
     cnt = torch.empty((D,), dtype=torch.int32, device=dev)
-    if D == 0:
-        return idx, vals, cnt
-    err = _lib("compact").compact_rows_launch(
-        build.ptr(mask), mask.stride(0), mask.stride(1), build.ptr(values),
-        values.stride(0), values.stride(1), D, M, int(cap), build.ptr(idx),
-        build.ptr(vals), build.ptr(cnt), build.stream_ptr(dev))
-    build.check(err, "compact_rows")
-    build.count("compact_rows")
+    if D:
+        ms0, ms1 = mask.stride()
+        vs0, vs1 = values.stride()
+        err = _compact_rows_launch()(
+            mask.data_ptr(), ms0, ms1, values.data_ptr(), vs0, vs1, D, M,
+            cap, idx.data_ptr(), vals.data_ptr(), cnt.data_ptr(),
+            build.stream_ptr(dev))
+        build.check(err, "compact_rows")
+        build.count("compact_rows")
     return idx, vals, cnt

@@ -1,11 +1,21 @@
 """Plain PyTorch versions of the scheduler kernels (K5 horizon, K6
 compaction, K7 compact-gather, K8 segment rank, K9 row compaction) and the
-sort-based earliest-K oracle."""
+sort-based earliest-K oracle.
+
+``segment_rank_split_ref`` and ``compact_rows_packed_ref`` model the CUDA
+kernels' schedules (``csrc/segment_rank.cu``, ``csrc/compact.cu``) on the
+CPU, step for step in what each block, warp and lane counts; only the tests
+use them, to hold the schedules bitwise to the plain versions."""
 from __future__ import annotations
 
 import torch
 
 RANK_ROWS = 2048
+RANK_WARPS = 32          # K8: events (warps) of one block, half from each end
+RANK_CHUNK = 28672       # K8: keys of one staged chunk
+RANK_GROUP = 4           # K8: keys of one lane's 16-byte load
+RANK_CHECK = 8           # K8: full trips between early-stop checks
+PASS_THREADS = 1024      # K6/K9: threads of the one block that scans a row
 
 
 def horizon_score_ref(cand, t_clock, *, t_end: float, horizon_cap: float,
@@ -110,3 +120,111 @@ def segment_rank_ref(key, max_rank: int):
         earlier = idx[None, :j1] < idx[j0:j1, None]
         rank[j0:j1] = torch.clamp((same & earlier).sum(dim=1), max=max_rank)
     return rank
+
+
+def segment_rank_events(E: int, warps: int = RANK_WARPS):
+    """K8's events by block and warp: i64[blocks, warps], -1 for an idle
+    warp.  Block b's first half of warps take events half*b + w from the
+    front of the batch, its second half events E - 1 - half*b - w from the
+    back, so every block compares about as many keys."""
+    half = warps // 2
+    front = (E + 1) // 2
+    nb = (E + warps - 1) // warps
+    t = half * torch.arange(nb)[:, None] + torch.arange(half)[None, :]
+    lo = torch.where(t < front, t, -1)
+    hi = torch.where(t < E - front, E - 1 - t, -1)
+    return torch.cat([lo, hi], dim=1)
+
+
+def segment_rank_split_ref(key, max_rank: int, lanes: int = 32,
+                           chunk: int = RANK_CHUNK, group: int = RANK_GROUP,
+                           check: int = RANK_CHECK):
+    """K8's schedule: each block stages the keys its events need, key[0,
+    j_end), in chunks of ``chunk``; in a chunk the warp of event j counts
+    equal keys below j, lane l over the ``group``-key words l, l + lanes,
+    ...; after each block of ``check`` full trips and at each chunk's end
+    the warp sums its lanes and stops once the sum reaches ``max_rank``.
+    Returns min(sum, max_rank) per event, as ``segment_rank_ref``."""
+    E = key.shape[0]
+    rank = torch.full((E,), -1, dtype=torch.int32)
+    trip = lanes * group
+    for js in segment_rank_events(E):
+        live = js >= 0
+        if not bool(live.any()):
+            continue
+        kj = key[js.clamp(min=0)]
+        j_end = int(js.max()) + 1
+        cnt = torch.zeros((js.shape[0], lanes), dtype=torch.int64)
+        done = ~live | (max_rank <= 0)
+        for c0 in range(0, j_end, chunk):
+            n = min(chunk, j_end - c0)
+            lim = torch.clamp(js - c0, max=n)              # keys before j
+            tile = torch.full((-(-n // trip) * trip,), -1, dtype=key.dtype)
+            tile[:n] = key[c0:c0 + n]
+            p = torch.arange(tile.shape[0])
+            hit = (tile[None, :] == kj[:, None]) & (p[None, :] < lim[:, None])
+            # [warp, trip, lane]: the keys lane l of a trip compares
+            per = hit.reshape(js.shape[0], -1, lanes, group).sum(-1)
+            full = (lim // trip).clamp(min=0)              # full trips
+            k = torch.arange(per.shape[1])
+            at = torch.cumsum(per, 1) + cnt[:, None, :]    # after trip k
+            stop = (k[None, :] % check == check - 1) & (k[None, :] <
+                                                        full[:, None])
+            stop &= at.sum(-1) >= max_rank
+            first = torch.where(stop.any(1), stop.int().argmax(1),
+                                per.shape[1] - 1)
+            new = at[torch.arange(js.shape[0]), first]
+            cnt = torch.where(done[:, None], cnt, new)
+            done = done | stop.any(1) | (js <= c0 + n) \
+                | (cnt.sum(-1) >= max_rank)
+        rank[js[live]] = torch.clamp(cnt.sum(-1), max=max_rank)[live] \
+            .to(torch.int32)
+    return rank
+
+
+def compact_rows_packed_ref(mask, values, cap: int,
+                            threads: int = PASS_THREADS):
+    """K9's schedule, one block per row.  A [D, M] mask whose storage is
+    the contiguous [M, D] bytes of a transposed view, with 16 % D == 0, is
+    read as 16-byte groups, one a thread: 16 / D columns of all D rows, of
+    which row d keeps bits k * D + d (LPT = 16 / D lanes a thread).  Any
+    other mask is read per row, 16 lanes a thread.  In each pass of
+    ``threads`` threads a warp's 32 * LPT lanes are written in LPT rounds
+    of 32: slot = the pass carry + the warp's exclusive sum of the warp
+    counts + the earlier rounds' set lanes + the lane's rank in its round's
+    ballot.  Returns (idx, vals, count) as ``compact_rows_ref``."""
+    D, M = mask.shape
+    packed = D > 1 and 16 % D == 0 and mask.stride() == (1, D)
+    lpt = 16 // D if packed else 16
+    per_pass = threads * lpt
+    passes = -(-M // per_pass)
+    nz = mask != 0
+    if packed:
+        # storage byte 16 g + k D + d: column lpt g + k of row d
+        store = torch.zeros((passes * threads * 16,), dtype=torch.bool)
+        store[:D * M] = nz.T.reshape(-1)
+        groups = store.reshape(-1, lpt, D)                  # [g, k, d]
+        bits = groups.permute(2, 0, 1)                      # [d, g, k]
+    else:
+        bits = torch.zeros((D, passes * per_pass), dtype=torch.bool)
+        bits[:, :M] = nz
+        bits = bits.reshape(D, -1, lpt)                     # [d, thread, k]
+    # lane o = 32 r + l of warp w is bit o % lpt of the warp's thread o //
+    # lpt: [d, pass, warp, round, lane]
+    s = bits.reshape(D, passes, threads // 32, lpt, 32).to(torch.int64)
+    in_round = torch.cumsum(s, -1) - s
+    round_cnt = s.sum(-1)
+    round_base = torch.cumsum(round_cnt, -1) - round_cnt
+    warp_cnt = round_cnt.sum(-1)
+    warp_base = torch.cumsum(warp_cnt, -1) - warp_cnt
+    pass_cnt = warp_cnt.sum(-1)
+    carry = torch.cumsum(pass_cnt, -1) - pass_cnt
+    pos = (carry[:, :, None, None, None] + warp_base[..., None, None]
+           + round_base[..., None] + in_round).reshape(D, -1)[:, :M]
+    keep = s.reshape(D, -1)[:, :M].bool() & (pos < cap)
+    rows, cols = torch.nonzero(keep, as_tuple=True)
+    idx = torch.full((D, cap), M, dtype=torch.int32)
+    vals = torch.zeros((D, cap), dtype=values.dtype)
+    idx[rows, pos[rows, cols]] = cols.to(torch.int32)
+    vals[rows, pos[rows, cols]] = values[rows, cols]
+    return idx, vals, pass_cnt.sum(-1).to(torch.int32)

@@ -322,14 +322,31 @@ def test_compaction_kernels_bitwise_equal_to_plain(dev, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E", [1, 255, 257, 4000, 18000])
+@pytest.mark.parametrize("E", [1, 31, 33, 255, 257, 4000, 4225, 18000, 60000])
 def test_segment_rank_kernel_bitwise_equal_to_plain(dev, E):
+    """K8 against its plain version on the same card: few, many and
+    all-equal keys and the wheel's pattern (distinct keys, then the
+    invalid key on every empty slot), max_rank 0 to 19, keys 16-byte
+    aligned and one word off; E = 18000 stages its keys in one chunk past
+    48 KB, E = 60000 in three."""
     rng = np.random.default_rng(E)
-    for n_keys, max_rank in ((3, 2), (50, 6), (E + 5, 17), (7, 0)):
-        key = torch.from_numpy(rng.integers(0, n_keys + 1, E)
-                               .astype(np.int32))
-        _eq(ew_ops.segment_rank(key.to(dev), max_rank),
-            ew_ref.segment_rank_ref(key, max_rank))
+    wheel = rng.integers(0, 1024, E)
+    wheel[E // 2:] = 1024
+    cases = ((rng.integers(0, 4, E), 2), (rng.integers(0, 51, E), 6),
+             (rng.integers(0, E + 6, E), 17), (rng.integers(0, 8, E), 0),
+             (np.full(E, 7), 19), (wheel, 19))
+    build.reset_launches()
+    calls = 0
+    for key, max_rank in cases:
+        for offset in (0, 1):
+            buf = np.concatenate([np.zeros(offset), key]).astype(np.int32)
+            card = torch.from_numpy(buf).to(dev)[offset:]
+            assert card.data_ptr() % 16 == 4 * offset
+            _eq(ew_ops.segment_rank(card, max_rank),
+                ew_ref.segment_rank_ref(card, max_rank))
+            calls += 1
+    torch.cuda.synchronize()
+    assert build.launches()["segment_rank"] == calls
 
 
 @pytest.mark.cuda
@@ -406,22 +423,31 @@ def test_baselines_card_equal_cpu(dev):
 @pytest.mark.parametrize("M", [1, 255, 1024, 4096, 5000])
 def test_row_compaction_kernel_bitwise_equal_to_plain(dev, M):
     """K9 against its plain version: empty, sparse, half and full rows,
-    caps below and above M, a transposed mask and a broadcast value row
-    (the exchange's strides)."""
+    caps below and above M, a broadcast value row (the exchange's
+    strides), D of 1, 3, 4 and 8, in the transport's transposed layout
+    (strides (1, D)), in contiguous rows, and as a transposed view 1-15
+    bytes past an aligned buffer."""
     rng = np.random.default_rng(M)
     build.reset_launches()
     calls = 0
-    for D in (1, 4):
-        for cap in (1, 16, 1024, M + 3):
-            for frac in (0.0, 0.05, 0.5, 1.0):
-                m = torch.from_numpy(rng.random((M, D)) < frac).T
-                row = torch.from_numpy(rng.random(M))
-                vals = row[None, :].expand(D, M)
-                got = ew_ops.spike_compact(m.to(dev), row.to(dev)[None, :]
-                                           .expand(D, M), cap)
-                for a, r in zip(got, ew_ref.compact_rows_ref(m, vals, cap)):
-                    _eq(a, r)
-                calls += 1
+    for layout in ("transposed", "contiguous", "offset"):
+        for D in (1, 3, 4, 8):
+            for cap in (1, 16, 1024, M + 3):
+                for frac in (0.0, 0.05, 0.5, 1.0):
+                    off = int(rng.integers(1, 16)) if layout == "offset" \
+                        else 0
+                    buf = torch.from_numpy(rng.random(M * D + off) < frac)
+                    stored = buf.to(dev)[off:].view(M, D)
+                    m = stored.T.contiguous() if layout == "contiguous" \
+                        else stored.T
+                    assert m.data_ptr() % 16 == off
+                    row = torch.from_numpy(rng.random(M)).to(dev)
+                    vals = row[None, :].expand(D, M)
+                    got = ew_ops.spike_compact(m, vals, cap)
+                    for a, r in zip(got,
+                                    ew_ref.compact_rows_ref(m, vals, cap)):
+                        _eq(a, r)
+                    calls += 1
     torch.cuda.synchronize()
     assert build.launches()["compact_rows"] == calls
 

@@ -1,6 +1,7 @@
 """Parity of the port's compaction, compact-gather and segment-rank plain
 versions (the functions kernels K6, K7 and K8 compute) against the JAX
-package, on the CPU.
+package, on the CPU; the CPU model of K8's schedule
+(``ref.segment_rank_split_ref``) against both; the wrappers' refusals.
 
 Inputs are made with numpy from a seed.  The JAX side runs as its own
 tests run it (``tests/test_active_set.py``, ``tests/test_event_wheel.py``):
@@ -25,6 +26,7 @@ from repro.kernels.event_wheel import ref as jew_ref  # noqa: E402
 from repro.kernels.event_wheel.event_wheel import segment_rank_pallas  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.event_wheel import event_wheel as tew_cuda  # noqa: E402,E501
 from repro_torch.kernels.event_wheel import ops as tew_ops  # noqa: E402
 from repro_torch.kernels.event_wheel import ref as tew_ref  # noqa: E402
 
@@ -133,4 +135,72 @@ def test_plain_versions_launch_nothing():
     tew_ops.compact_ids(m, 4)
     tew_ops.compact_gather(m, torch.zeros((10, 2), dtype=torch.int32), 4)
     tew_ops.segment_rank(torch.zeros(9, dtype=torch.int32), 2)
+    assert all(v == 0 for v in build.launches().values())
+
+
+def _rank_keys(kind, E, rng):
+    """Key batches of the wheel's shape: ``target * B + bucket`` for valid
+    events and the invalid key N * B (N = 64, B = 16) for the rest."""
+    n_keys = 64 * 16
+    if kind == "path":           # mostly distinct valid keys, then a tail
+        key = rng.integers(0, n_keys, E)                # of empty slots
+        key[E // 2:] = n_keys
+    elif kind == "few":
+        key = rng.integers(0, 5, E)
+    elif kind == "equal":
+        key = np.full(E, 7)
+    else:                        # every event invalid
+        key = np.full(E, n_keys)
+    return key.astype(np.int32)
+
+
+@pytest.mark.parametrize("E", [0, 1, 31, 33, 4225])
+@pytest.mark.parametrize("kind", ["path", "few", "equal", "invalid"])
+@pytest.mark.parametrize("max_rank", [0, 1, 19])
+def test_segment_rank_split_schedule_matches_plain_and_jax(E, kind, max_rank):
+    """K8's schedule (front/back events per block, lane-strided 16-byte
+    words, chunked staging, early stop at max_rank) gives the plain
+    version's ranks, JAX's pairwise oracle's and its Pallas kernel's."""
+    key = _rank_keys(kind, E, np.random.default_rng(E + max_rank))
+    want = tew_ref.segment_rank_ref(torch.from_numpy(key), max_rank)
+    for chunk in (tew_ref.RANK_CHUNK, 256):
+        got = tew_ref.segment_rank_split_ref(torch.from_numpy(key), max_rank,
+                                             chunk=chunk)
+        assert got.dtype == torch.int32 and got.shape == (E,)
+        assert torch.equal(got, want)
+    if E == 0:
+        return
+    _eq(want, jew_ref.segment_rank_ref(jnp.asarray(key), max_rank))
+    be = 512
+    kp = np.concatenate([key, np.full((-E) % be, -1, np.int32)])
+    _eq(want, segment_rank_pallas(jnp.asarray(kp), max_rank=max_rank,
+                                  block_e=be, interpret=True)[:E])
+
+
+@pytest.mark.parametrize("E", [0, 1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+                               4223, 4224, 4225, 60000])
+def test_segment_rank_blocks_serve_each_event_once(E):
+    """Every event has exactly one warp, and a block's events compare only
+    keys it stages (below the largest event it serves)."""
+    ev = tew_ref.segment_rank_events(E)
+    assert ev.shape == (-(-E // 32), 32)
+    live = ev[ev >= 0]
+    assert torch.equal(torch.sort(live).values, torch.arange(E))
+    if E:          # the busiest block compares about half the pairs' keys
+        work = torch.where(ev >= 0, ev, 0).sum(1)
+        assert int(work.max()) <= 16 * E
+
+
+def test_segment_rank_wrapper_refuses_cpu_and_bad_inputs():
+    """The CUDA wrapper raises on what its kernel does not take, before
+    any build or launch."""
+    build.reset_launches()
+    good = torch.zeros(8, dtype=torch.int32)
+    for key in (good, good.to(torch.int64), good.reshape(2, 4), good[::2]):
+        with pytest.raises(ValueError, match="contiguous int32"):
+            tew_cuda.segment_rank_cuda(key, 3)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        tew_cuda.segment_rank_cuda(good, -1)
+    with pytest.raises(ValueError, match="contiguous bool"):
+        tew_cuda.compact_ids_cuda(torch.ones(4, dtype=torch.bool), 2)
     assert all(v == 0 for v in build.launches().values())
