@@ -9,7 +9,8 @@ Phases, each reported on its own lines:
   2. the per-step and horizon kernels against their plain PyTorch versions
      on the card, at the main path's shapes (K1/K2/K4 at N=16384 with C=13
      and C=1, K5 at K=16; K1, K2 and K5 bitwise, K3 == K2(K1); K1/K2 also
-     at C=29 and at N=16421, untimed), with each kernel's time per call
+     at C=29 and at N=16421, K5 at N 1, 255, 16385 x K 1, 5, 16, 33 with
+     clocks at t_end, +-inf and NaN, untimed), with each kernel's time per call
      (CUDA events around each of 25 calls, median: the wrapper's host work
      included),
      its device time (events around the replay of a CUDA graph of 50
@@ -27,7 +28,8 @@ Phases, each reported on its own lines:
      card, bitwise, at the active path's shapes: its auto caps, the edge
      table of its network, a spike mask and a key batch that the path
      itself produced (with timings, bounds and ``torch.nonzero`` beside
-     K6), K6 at ragged N on mask views 1-15 bytes off alignment, and K8
+     K6), K6 at ragged N on mask views 1-15 bytes off alignment, K7 at
+     caps 1 and N, MO 1 and 64 on mask views 1-15 bytes off, and K8
      also at max_rank 0, on all-equal keys and on batches of the path's
      pattern at E = 4225, 18000 and 60000 (its chunked staging);
   6. the dense path at N=64 on the card (kernels) and on the CPU (plain
@@ -457,6 +459,27 @@ def phase_kernels(dev):
         12 * K * N + 8 * N + 16 * N, (2 * K + 5) * N)
     say("kernels", f"K={K} N={N}: horizon_score "
         f"{fmt_row(rows['horizon_score'])}; bitwise")
+    # ragged N, the generic body's K, clocks at t_end, +-inf and NaN on a
+    # tenth of the neurons and neuron 0: bit for bit, NaNs included
+    gen5 = np.random.default_rng(55)
+    shapes = [(n5, k5) for n5 in (1, 255, N + 1) for k5 in (1, 5, K, 33)]
+    for n5, k5 in shapes:
+        p5 = torch.from_numpy(gen5.integers(0, n5, (k5, n5))
+                              .astype(np.int32)).to(dev)
+        d5 = torch.from_numpy(gen5.uniform(0.1, 3.0, (k5, n5))).to(dev)
+        for special in (20.0, np.inf, -np.inf, np.nan):
+            t5 = gen5.uniform(0.0, 20.0, n5)
+            t5[gen5.random(n5) < 0.1] = special
+            t5[0] = special
+            t5 = torch.from_numpy(t5).to(dev)
+            for g, w in zip(ew_ops.horizon_score(t5, p5, d5, **kw),
+                            ew_ref.horizon_gather_ref(t5, p5, d5, **kw)):
+                if not torch.equal(g.view(torch.int64), w.view(torch.int64)):
+                    raise AssertionError(f"horizon_score N={n5} K={k5} "
+                                         f"clocks {special}: kernel differs "
+                                         f"from its plain version")
+    say("kernels", f"horizon_score at (N, K) {shapes}, clocks at t_end, "
+        f"+-inf and NaN: bitwise")
     floor = launch_floor_ms()
     say("kernels", f"K1/K2/K5 bitwise equal to their plain versions, K3 == "
         f"K2(K1), K4 within rtol {RTOL}, atol {ATOL}; launch floor "
@@ -689,6 +712,20 @@ def phase_sched_kernels(dev, act):
     say("sched-kernels", f"compact_gather N={N} MO={MO} spike_cap={s_cap} "
         f"fill=E={E}, path mask with {n_real} spikes and densities "
         f"{sorted(masks)}: bitwise; {fmt_row(rows['compact_gather'])}")
+    # caps 1 and N, tables of MO 1 and 64, mask views 1-15 bytes past an
+    # aligned buffer
+    for mo in (1, 64):
+        t7 = torch.from_numpy(gen.integers(-10**6, 10**6, (N, mo))
+                              .astype(np.int32)).to(dev)
+        for off in range(1, 16):
+            buf = torch.from_numpy(gen.random(N + 16) < (0.01, 0.5)[off % 2])
+            mv = buf.to(dev)[off:off + N]
+            for c in (1, N):
+                same(f"compact_gather MO={mo} offset={off} cap={c}",
+                     ew_ops.compact_gather(mv, t7, c, fill=E),
+                     ew_ref.compact_gather_ref(mv, t7, c, E))
+    say("sched-kernels", "compact_gather caps 1 and N x MO 1 and 64 x mask "
+        "offsets 1-15: bitwise")
 
     keys = act["keys"]
     S, B = act["wheel"][1], act["wheel"][0]

@@ -1,5 +1,5 @@
-"""K1, K2, K3, K6, K8 and K9 of the port, two source trees in turns on one
-NVIDIA card.
+"""K1, K2, K3, K5, K6, K7, K8 and K9 of the port, two source trees in turns
+on one NVIDIA card.
 
     python3 scripts/kernel_ab.py BASE_TREE [NEW_TREE] [--order ABBA]
                                  [--t-end MS]
@@ -15,8 +15,13 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   d_elim as the ``factors[:, :C].T`` slice of ``[N, n_factors]`` rows and b
   as transposed ``[N, C]`` rows; K3 ``hines_solve`` on transposed ``[N,
   C]`` rows of the branched (``k3``) and the ball-and-stick cell (C = 11,
-  ``k3_c11``); K6 ``compact_ids`` on a 50 % mask of N = 16384 lanes with
-  cap = N (the active path's auto cap); K8 ``segment_rank`` on a key batch
+  ``k3_c11``); K5 ``horizon_score`` on phase 2's inputs (the network's
+  by-post layout, K = 16, clocks uniform in [0, 20) from seed 5, the
+  first 64 at t_end = 20, horizon cap 2); K6 ``compact_ids`` on a 50 %
+  mask of N = 16384 lanes with cap = N (the active path's auto cap); K7
+  ``compact_gather`` on the network's out-edge table (MO = 33) with a
+  mask of 1866 set lanes from seed 23 (the active path's busiest spike
+  mask's count), cap 128, fill = E; K8 ``segment_rank`` on a key batch
   as the active path's compact fan-out makes it (128 rows of the network's
   out-edge table, 123 of them a spiking neuron's: ``post * B + bucket``
   with B = 16 for each real edge, the invalid key N * B for the padding,
@@ -37,8 +42,8 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   ``--t-end`` ms (0 skips them): wall per round (2c) or per window (2a),
   with their K1/K2/K3/K6/K8 launches.  These are host-bound; they are
   reported, and no gain is claimed from them;
-* ``ptxas``: registers, shared memory and spills of the six kernels, from
-  nvcc's ``-Xptxas -v`` (runs that built the library).
+* ``ptxas``: registers, shared memory and spills of the eight kernels,
+  from nvcc's ``-Xptxas -v`` (runs that built the library).
 
 One JSON line per run, then the card's name and power limit.  Compare two
 trees only within one invocation: hosts differ between machines.
@@ -125,15 +130,29 @@ out["nonzero"] = dict(ms=cs.cuda_ms(lambda: torch.nonzero(mask)),
                       device_ms=cs.profiled_device_ms(
                           lambda: torch.nonzero(mask)))
 
+net = make_network(N, k_in=cs.K_IN, seed=cs.NET_SEED)
+pre, dly = ew_ops.by_post_layout(net, dev)
+g5 = torch.Generator(device="cpu").manual_seed(5)
+tc = (torch.rand(N, generator=g5, dtype=torch.float64) * 20.0).to(dev)
+tc[:64] = 20.0
+hkw = dict(t_end=20.0, horizon_cap=2.0)
+out["k5"] = timed(lambda: ew_ops.horizon_score(tc, pre, dly, **hkw),
+                  ew_ref.horizon_gather_ref(tc, pre, dly, **hkw))
+table = torch.as_tensor(out_edge_table(net), device=dev).contiguous()
+n_edges = int(net.post.shape[0])
+spk = np.zeros(N, bool)
+spk[np.random.default_rng(23).choice(N, 1866, replace=False)] = True
+spk = torch.from_numpy(spk).to(dev)
+out["k7"] = timed(lambda: ew_ops.compact_gather(spk, table, 128, fill=n_edges),
+                  ew_ref.compact_gather_ref(spk, table, 128, n_edges))
+
 # K8's keys as the active path's compact fan-out makes them: 123 spiking
 # neurons' rows of the out-edge table in a batch of 128 rows (the auto
 # spike cap), key = post * B + bucket for each real edge, N * B for the
 # table's padding and the empty rows
 gen = np.random.default_rng(19)
 B, S = 16, 19
-net = make_network(N, k_in=cs.K_IN, seed=cs.NET_SEED)
 rows = out_edge_table(net)
-n_edges = int(net.post.shape[0])
 batch = np.full((128, rows.shape[1]), n_edges)
 batch[:123] = rows[gen.choice(N, 123, replace=False)]
 real = batch < n_edges
@@ -152,7 +171,8 @@ out["k9"] = timed(lambda: ew_ops.spike_compact(pm, pv, cap),
 def launches():
     n = build.launches()
     return {k: n[k] for k in ("hines_factor", "hines_solve_factored",
-                              "hines_solve", "compact_ids", "segment_rank")}
+                              "hines_solve", "horizon_score", "compact_ids",
+                              "compact_gather", "segment_rank")}
 
 
 for name, knobs in (("dense", {}), ("active", dict(wheel="auto",
@@ -190,7 +210,9 @@ ptxas = {}
 for src, kern in (("hines", "hines_factor_kernel"),
                   ("hines", "hines_solve_factored_kernel"),
                   ("hines", "hines_solve_kernel"),
+                  ("horizon", "horizon_kernel"),
                   ("compact", "compact_ids_kernel"),
+                  ("compact", "compact_gather_kernel"),
                   ("compact", "compact_rows_kernel"),
                   ("segment_rank", "segment_rank_kernel")):
     entry = None

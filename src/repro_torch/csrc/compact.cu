@@ -62,12 +62,22 @@
 // the scan.  The sentinel fills (M in idx, 0.0 in vals) use 16-byte stores.
 // ref.compact_rows_packed_ref models the pass on the CPU.
 //
-// K7 keeps the first port's block scan (block_compact): one block of 1024
-// threads walks the mask in 1024-lane chunks, each warp ranks its set lanes
-// with __ballot_sync/__popc, warp 0 scans the 32 warp counts and a shared
-// carry holds the running count between chunks; the row gather then runs
-// in the same block, one thread per (slot, column) pair.  Moving it onto
-// the one-barrier pass is later work.
+// K7 runs K6's pass, then gathers the rows in the same kernel after one
+// more barrier (the first port scanned in 16 chunks of four barriers).
+// The entries are split over G = 32 blocks (kGatherBlocks; on the H100
+// 12-14 % faster than one block at the main path's shape, 64 no faster);
+// each block re-runs the pass (16 KB of
+// mask from L2) and writes the same ids, then gathers its share of the
+// n_e = kept * MO filled entries and fills its share of the rest.  A
+// thread reads each slot's id back from global memory (its block's own
+// writes; staging them in shared memory measured 0.0003-0.0004 ms
+// slower), walks its entries e = e0 + tid, + 1024, ... with (slot,
+// column) advanced by adds (one division by MO a thread, not two an
+// entry), and issues the table loads of 8 entries before their 8 stores;
+// loads and stores are coalesced along the rows.  The empty slots' fill
+// values are written with 16-byte stores before the barrier, where they
+// overlap the scan's tail.  Any cap is taken.  ref.compact_gather_sched_ref
+// models the schedule.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -75,53 +85,6 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-
-// The block scan: calls place(pos, i) for each lane i < N with is_set(i)
-// whose rank pos (set lanes before it) is below cap; returns the number of
-// set lanes, in every thread.
-template <class IsSet, class Place>
-__device__ int block_compact(int N, int cap, IsSet is_set, Place place) {
-  __shared__ int warp_incl[kWarps];
-  __shared__ int carry;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (tid == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < N; base += kThreads) {
-    const int i = base + tid;
-    const bool set = i < N && is_set(i);
-    const unsigned ballot = __ballot_sync(0xffffffffu, set);
-    const int before = __popc(ballot & ((1u << lane) - 1u));
-    if (lane == 0) warp_incl[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      int v = warp_incl[lane];
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += y;
-      }
-      warp_incl[lane] = v;                      // inclusive scan of counts
-    }
-    __syncthreads();
-    const int pos = carry + (warp ? warp_incl[warp - 1] : 0) + before;
-    if (set && pos < cap) place(pos, i);
-    __syncthreads();                            // carry and scan read
-    if (tid == 0) carry += warp_incl[kWarps - 1];
-    __syncthreads();
-  }
-  return carry;
-}
-
-__device__ void compact_block(const uint8_t* __restrict__ mask, int N,
-                              int cap, int32_t* ids, int32_t* count) {
-  const int total = block_compact(
-      N, cap, [&](int i) { return mask[i] != 0; },
-      [&](int pos, int i) { ids[pos] = i; });
-  for (int r = min(total, cap) + threadIdx.x; r < cap; r += kThreads)
-    ids[r] = N;
-  if (threadIdx.x == 0) *count = total;
-}
 
 // Bit j of the result: byte j of w is nonzero.
 __device__ __forceinline__ unsigned nonzero_bits4(unsigned w) {
@@ -254,17 +217,57 @@ compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
   if (threadIdx.x == 0) *count = total;
 }
 
+constexpr int kGatherUnroll = 8;                // table loads before stores
+constexpr int kGatherBlocks = 32;               // K7's G
+
+// K7.  Block b of G gathers entries [n_e b / G, n_e (b + 1) / G) of the
+// n_e = kept * MO filled ones and fills its share of the rest alike.
 __global__ void __launch_bounds__(kThreads)
 compact_gather_kernel(const uint8_t* __restrict__ mask, int N,
                       const int32_t* __restrict__ table, int MO, int cap,
                       int fill, int32_t* ids, int32_t* __restrict__ rows,
-                      int32_t* count) {
-  compact_block(mask, N, cap, ids, count);
-  __syncthreads();                              // ids visible to the block
-  const long long total = (long long)cap * MO;
-  for (long long e = threadIdx.x; e < total; e += kThreads) {
-    const int id = ids[e / MO];
-    rows[e] = id < N ? __ldg(table + (long long)id * MO + e % MO) : fill;
+                      int32_t* __restrict__ count) {
+  const int shift = (int)(reinterpret_cast<uintptr_t>(mask) & 15);
+  const uint8_t* base = mask - shift;
+  const long long end = (long long)shift + N;
+  const int total = compact_row<16, false>(
+      [&](long long v0) { return group_bits(base, v0, shift, end); }, shift,
+      N, cap, ids, nullptr, 0, nullptr);
+  const int kept = min(total, cap);
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long n_e = (long long)kept * MO;
+  const long long n_fill = (long long)(cap - kept) * MO;
+  if (b == 0) {
+    fill_slots(ids + kept, cap - kept, N);
+    if (threadIdx.x == 0) *count = total;
+  }
+  const long long f0 = n_fill * b / G, f1 = n_fill * (b + 1) / G;
+  fill_slots(rows + n_e + f0, (int)(f1 - f0), fill);
+  __syncthreads();                              // the ids, to the block
+  const long long g1 = n_e * (b + 1) / G;
+  long long e0 = n_e * b / G + threadIdx.x;
+  if (e0 >= g1) return;
+  // entry e is (slot r, column c); kThreads entries on is q slots and rm
+  // columns on
+  const int q = kThreads / MO, rm = kThreads % MO;
+  int r = (int)(e0 / MO), c = (int)(e0 % MO);
+  for (; e0 < g1; e0 += (long long)kGatherUnroll * kThreads) {
+    int v[kGatherUnroll];
+#pragma unroll
+    for (int j = 0; j < kGatherUnroll; ++j) {
+      if (e0 + (long long)j * kThreads < g1)
+        v[j] = __ldg(table + (long long)ids[r] * MO + c);
+      r += q;
+      c += rm;
+      if (c >= MO) {
+        c -= MO;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGatherUnroll; ++j)
+      if (e0 + (long long)j * kThreads < g1)
+        rows[e0 + (long long)j * kThreads] = v[j];
   }
 }
 
@@ -342,7 +345,7 @@ extern "C" int compact_gather_launch(const void* mask, int N,
                                      const void* table, int MO, int cap,
                                      int fill, void* ids, void* rows,
                                      void* count, void* stream) {
-  compact_gather_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+  compact_gather_kernel<<<kGatherBlocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)mask, N, (const int32_t*)table, MO, cap, fill,
       (int32_t*)ids, (int32_t*)rows, (int32_t*)count);
   return (int)cudaGetLastError();

@@ -15,10 +15,12 @@
 
 Each wrapper checks device, type, shape and contiguity, allocates its
 outputs, launches on the current stream and adds one to its launch count.
-The wrappers of K6, K8 and K9, which run on the active and the SPMD paths'
-every round, check in one expression (the detailed errors only when it
-fails) and pass raw ``data_ptr()``s to a cached typed launcher; K6
-allocates ids and count as one buffer.
+Every wrapper checks in one expression (the detailed errors only when it
+fails) and passes raw ``data_ptr()``s to a cached typed launcher; K6
+allocates ids and count as one buffer and K5 its two outputs as the rows
+of one ``[2, N]`` buffer (K5's: 2-3 us cheaper than two allocations in
+an allocation micro-benchmark on the H100, unresolved in the wrapper's
+host time); K7 and K9 allocate each output on its own.
 """
 from __future__ import annotations
 
@@ -63,10 +65,7 @@ def _check_mask(mask, cap: int):
         raise ValueError(f"cap must be at least 1, got {cap}")
 
 
-def horizon_score_cuda(t_clock, pre_byk, delay_byk, *, t_end: float,
-                       horizon_cap: float, eps: float = 1e-12):
-    """t_clock f64[N]; pre_byk i32[K, N]; delay_byk f64[K, N] ->
-    (horizon f64[N], score f64[N])."""
+def _check_horizon(t_clock, pre_byk, delay_byk):
     K, N = pre_byk.shape
     dev = t_clock.device
     if not t_clock.is_cuda or t_clock.dtype != torch.float64 \
@@ -79,12 +78,32 @@ def horizon_score_cuda(t_clock, pre_byk, delay_byk, *, t_end: float,
             or not delay_byk.is_contiguous() or delay_byk.device != dev:
         raise ValueError("delay_byk must be a contiguous float64[K, N] "
                          "on the device")
-    hor = torch.empty((N,), dtype=torch.float64, device=dev)
-    score = torch.empty((N,), dtype=torch.float64, device=dev)
-    err = _lib().horizon_score_launch(
-        build.ptr(t_clock), build.ptr(pre_byk), build.ptr(delay_byk), K, N,
-        float(t_end), float(horizon_cap), float(eps), build.ptr(hor),
-        build.ptr(score), build.stream_ptr(dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _horizon_launch():
+    return _lib("horizon").horizon_score_launch
+
+
+def horizon_score_cuda(t_clock, pre_byk, delay_byk, *, t_end: float,
+                       horizon_cap: float, eps: float = 1e-12):
+    """t_clock f64[N]; pre_byk i32[K, N]; delay_byk f64[K, N] ->
+    (horizon f64[N], score f64[N])."""
+    K, N = pre_byk.shape
+    dev = t_clock.device
+    if not (t_clock.is_cuda and t_clock.dtype == torch.float64
+            and t_clock.shape == (N,) and t_clock.is_contiguous()
+            and pre_byk.dtype == torch.int32 and pre_byk.is_contiguous()
+            and pre_byk.device == dev and delay_byk.dtype == torch.float64
+            and delay_byk.shape == pre_byk.shape
+            and delay_byk.is_contiguous() and delay_byk.device == dev):
+        _check_horizon(t_clock, pre_byk, delay_byk)
+    hor, score = torch.empty((2, N), dtype=torch.float64,
+                             device=dev).unbind(0)
+    err = _horizon_launch()(
+        t_clock.data_ptr(), pre_byk.data_ptr(), delay_byk.data_ptr(), K, N,
+        float(t_end), float(horizon_cap), float(eps), hor.data_ptr(),
+        score.data_ptr(), build.stream_ptr(dev))
     build.check(err, "horizon_score")
     build.count("horizon_score")
     return hor, score
@@ -114,25 +133,39 @@ def compact_ids_cuda(mask, cap: int):
     return ids, cnt
 
 
+def _check_table(mask, table):
+    if table.dtype != torch.int32 or table.dim() != 2 \
+            or table.shape[0] != mask.shape[0] or not table.is_contiguous() \
+            or table.device != mask.device:
+        raise ValueError("table must be a contiguous int32[N, MO] on the "
+                         "mask's device")
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_gather_launch():
+    return _lib("compact").compact_gather_launch
+
+
 def compact_gather_cuda(mask, table, cap: int, fill: int):
     """mask bool[N], table i32[N, MO] -> (ids i32[cap], rows i32[cap, MO],
     count i32[]): ``compact_ids_cuda`` plus the table rows of the compacted
-    lanes, ``fill`` in empty slots."""
-    _check_mask(mask, cap)
+    lanes, ``fill`` in empty slots.  Any cap and any mask offset."""
+    if not (mask.is_cuda and mask.dtype == torch.bool and mask.dim() == 1
+            and mask.is_contiguous() and cap >= 1
+            and table.dtype == torch.int32 and table.dim() == 2
+            and table.shape[0] == mask.shape[0] and table.is_contiguous()
+            and table.device == mask.device):
+        _check_mask(mask, cap)
+        _check_table(mask, table)
     dev = mask.device
-    n = mask.shape[0]
-    if table.dtype != torch.int32 or table.dim() != 2 \
-            or table.shape[0] != n or not table.is_contiguous() \
-            or table.device != dev:
-        raise ValueError("table must be a contiguous int32[N, MO] on the "
-                         "mask's device")
-    mo = table.shape[1]
+    n, mo = table.shape
+    cap = int(cap)
     ids = torch.empty((cap,), dtype=torch.int32, device=dev)
     rows = torch.empty((cap, mo), dtype=torch.int32, device=dev)
     cnt = torch.empty((), dtype=torch.int32, device=dev)
-    err = _lib("compact").compact_gather_launch(
-        build.ptr(mask), n, build.ptr(table), mo, int(cap), int(fill),
-        build.ptr(ids), build.ptr(rows), build.ptr(cnt),
+    err = _compact_gather_launch()(
+        mask.data_ptr(), n, table.data_ptr(), mo, cap, int(fill),
+        ids.data_ptr(), rows.data_ptr(), cnt.data_ptr(),
         build.stream_ptr(dev))
     build.check(err, "compact_gather")
     build.count("compact_gather")

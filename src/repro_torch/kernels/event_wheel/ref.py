@@ -2,10 +2,11 @@
 compaction, K7 compact-gather, K8 segment rank, K9 row compaction) and the
 sort-based earliest-K oracle.
 
-``segment_rank_split_ref`` and ``compact_rows_packed_ref`` model the CUDA
-kernels' schedules (``csrc/segment_rank.cu``, ``csrc/compact.cu``) on the
-CPU, step for step in what each block, warp and lane counts; only the tests
-use them, to hold the schedules bitwise to the plain versions."""
+``segment_rank_split_ref``, ``compact_rows_packed_ref`` and
+``compact_gather_sched_ref`` model the CUDA kernels' schedules
+(``csrc/segment_rank.cu``, ``csrc/compact.cu``) on the CPU, step for step
+in what each block, warp and lane counts; only the tests use them, to hold
+the schedules bitwise to the plain versions."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +16,8 @@ RANK_WARPS = 32          # K8: events (warps) of one block, half from each end
 RANK_CHUNK = 28672       # K8: keys of one staged chunk
 RANK_GROUP = 4           # K8: keys of one lane's 16-byte load
 RANK_CHECK = 8           # K8: full trips between early-stop checks
-PASS_THREADS = 1024      # K6/K9: threads of the one block that scans a row
+PASS_THREADS = 1024      # K6/K7/K9: threads of a block that scans a row
+GATHER_UNROLL = 8        # K7: table loads of a thread before its stores
 
 
 def horizon_score_ref(cand, t_clock, *, t_end: float, horizon_cap: float,
@@ -228,3 +230,51 @@ def compact_rows_packed_ref(mask, values, cap: int,
     idx[rows, pos[rows, cols]] = cols.to(torch.int32)
     vals[rows, pos[rows, cols]] = values[rows, cols]
     return idx, vals, pass_cnt.sum(-1).to(torch.int32)
+
+
+def compact_gather_sched_ref(mask, table, cap: int, fill: int,
+                             blocks: int = 1, threads: int = PASS_THREADS,
+                             unroll: int = GATHER_UNROLL):
+    """K7's schedule: the ids from K6's pass (``compact_rows_packed_ref`` on
+    the one row), then each of ``blocks`` blocks gathers entries [n_e b /
+    G, n_e (b + 1) / G) of the n_e = kept * MO filled ones and fills its
+    share of the rest alike.  Thread t of a block walks its entries e =
+    e0 + t, + threads, ... in trips of ``unroll``, with (slot, column)
+    found by one division at the start and advanced by adds (threads
+    entries on = threads // MO slots and threads % MO columns on); every
+    entry must be written exactly once.  Returns (ids, rows, count) as
+    ``compact_gather_ref``."""
+    n = mask.shape[0]
+    mo = table.shape[1]
+    idx, _, cnt = compact_rows_packed_ref(
+        mask[None], torch.zeros((1, n), dtype=torch.float64), cap, threads)
+    ids = idx[0].clone()
+    kept = min(int(cnt[0]), cap)
+    n_e, n_fill = kept * mo, (cap - kept) * mo
+    rows = torch.zeros((cap * mo,), dtype=torch.int32)
+    writes = torch.zeros((cap * mo,), dtype=torch.int64)
+    flat = table.reshape(-1)
+    q, rm = (threads // mo, threads % mo) if mo else (0, 0)
+    for b in range(blocks):
+        f0, f1 = n_fill * b // blocks, n_fill * (b + 1) // blocks
+        rows[n_e + f0:n_e + f1] = fill
+        writes[n_e + f0:n_e + f1] += 1
+        g1 = n_e * (b + 1) // blocks
+        e = n_e * b // blocks + torch.arange(threads)
+        live = e < g1
+        if not bool(live.any()):
+            continue
+        r, c = e // mo, e % mo                  # one division a thread
+        while bool(live.any()):
+            for _ in range(unroll):
+                on = e < g1
+                rows[e[on]] = flat[ids[r[on]].long() * mo + c[on]]
+                writes[e[on]] += 1
+                e = e + threads
+                r, c = r + q, c + rm
+                wrap = c >= mo
+                r, c = r + wrap.long(), torch.where(wrap, c - mo, c)
+            live = live & (e < g1)
+    if not bool((writes == 1).all()):
+        raise AssertionError("an entry was written more or less than once")
+    return ids, rows.reshape(cap, mo), cnt[0]

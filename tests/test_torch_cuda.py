@@ -321,6 +321,86 @@ def test_compaction_kernels_bitwise_equal_to_plain(dev, n):
     assert launched["compact_ids"] == launched["compact_gather"] == calls
 
 
+def _bits(x):
+    """The bit patterns of a float64 tensor, so NaNs compare as bits."""
+    return x.contiguous().view(torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 255, 16385])
+@pytest.mark.parametrize("K", [1, 5, 16, 33])
+def test_horizon_kernel_bitwise_at_any_k_and_edge_clocks(dev, K, N):
+    """K5 against its plain version on the same card tensors, bit for bit
+    (NaNs included): K of 1, 5, 33 (the generic body) and 16 (the main
+    path's); clocks at t_end, at +-inf and NaN on a tenth of the neurons
+    and neuron 0; horizon caps that put the clock within eps of its
+    horizon, on both sides; candidates within eps of the clock."""
+    rng = np.random.default_rng(K * 100003 + N)
+    pre = torch.from_numpy(rng.integers(0, N, (K, N)).astype(np.int32))
+    dly = rng.uniform(0.1, 3.0, (K, N))
+    near = rng.random(N) < 0.2            # in-edges of ~0 delay
+    dly[:, near] = rng.uniform(1e-13, 3e-12, (K, int(near.sum())))
+    dly = torch.from_numpy(dly)
+    pre_d, dly_d = pre.to(dev), dly.to(dev)
+    build.reset_launches()
+    calls = 0
+    for special in (None, 20.0, np.inf, -np.inf, np.nan):
+        tc = rng.uniform(0.0, 20.0, N)
+        if special is not None:
+            tc[rng.random(N) < 0.1] = special
+            tc[0] = special
+        tc_d = torch.from_numpy(tc).to(dev)
+        for cap in (2.0, 0.5e-12, 1e-12, 2e-12):
+            kw = dict(t_end=20.0, horizon_cap=cap)
+            got = ew_ops.horizon_score(tc_d, pre_d, dly_d, **kw)
+            want = ew_ref.horizon_gather_ref(tc_d, pre_d, dly_d, **kw)
+            for g, w in zip(got, want):
+                assert g.shape == (N,) and g.dtype == torch.float64
+                _eq(_bits(g), _bits(w))
+            calls += 1
+            if special is None or not np.isnan(special):  # and the CPU's
+                cpu = ew_ref.horizon_gather_ref(torch.from_numpy(tc), pre,
+                                                dly, **kw)
+                for g, w in zip(got, cpu):
+                    _eq(_bits(g), _bits(w))
+    torch.cuda.synchronize()
+    assert build.launches()["horizon_score"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mo", [1, 33, 64])
+@pytest.mark.parametrize("cap", [1, 128, 16384, 60000])
+def test_compact_gather_kernel_bitwise_at_any_cap_and_offset(dev, cap, mo):
+    """K7 against its plain version: caps 1, 128 (the active path's spike
+    cap), N = 16384 and 60000 (above N), MO 1, 33 (the path's out-edge
+    table's) and 64, densities 0, 0.01, 0.5 and 1, mask views 0-15 bytes
+    past an aligned buffer; the kernel's split of the entries over its 32
+    blocks (ref.compact_gather_sched_ref models other splits on the
+    CPU)."""
+    N = 16384
+    rng = np.random.default_rng(cap * 7 + mo)
+    table = torch.from_numpy(rng.integers(-10**6, 10**6, (N, mo))
+                             .astype(np.int32))
+    table_d = table.to(dev)
+    build.reset_launches()
+    calls = 0
+    for frac in (0.0, 0.01, 0.5, 1.0):
+        for offset in range(16):
+            buf = torch.from_numpy(rng.random(N + 16) < frac)
+            m = buf[offset:offset + N]
+            card = buf.to(dev)[offset:offset + N]
+            assert card.data_ptr() % 16 == offset
+            want = ew_ref.compact_gather_ref(m, table, cap, -7)
+            got = ew_ops.compact_gather(card, table_d, cap, fill=-7)
+            assert got[1].shape == (cap, mo)
+            for a, r in zip(got, want):
+                _eq(a, r)
+            calls += 1
+            _eq(card, m)                       # the mask is untouched
+    torch.cuda.synchronize()
+    assert build.launches()["compact_gather"] == calls
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("E", [1, 31, 33, 255, 257, 4000, 4225, 18000, 60000])
 def test_segment_rank_kernel_bitwise_equal_to_plain(dev, E):

@@ -1,7 +1,8 @@
 """Parity of the port's compaction, compact-gather and segment-rank plain
 versions (the functions kernels K6, K7 and K8 compute) against the JAX
-package, on the CPU; the CPU model of K8's schedule
-(``ref.segment_rank_split_ref``) against both; the wrappers' refusals.
+package, on the CPU; the CPU models of K7's and K8's schedules
+(``ref.compact_gather_sched_ref``, ``ref.segment_rank_split_ref``)
+against both; the wrappers' refusals.
 
 Inputs are made with numpy from a seed.  The JAX side runs as its own
 tests run it (``tests/test_active_set.py``, ``tests/test_event_wheel.py``):
@@ -82,6 +83,51 @@ def test_compact_gather_default_fill_is_n():
         m, torch.arange(6, dtype=torch.int32).reshape(3, 2), 3)
     assert ids.tolist() == [1, 3, 3] and int(cnt) == 1
     assert rows.tolist() == [[2, 3], [3, 3], [3, 3]]
+
+
+@pytest.mark.parametrize("n,mo", [(1, 1), (255, 5), (700, 33), (4097, 7)])
+@pytest.mark.parametrize("cap", [1, 16, 300, 5000])
+def test_compact_gather_schedule_matches_plain_and_jax(n, mo, cap):
+    """K7's schedule (K6's pass, then the entries split over 1-32 blocks,
+    each thread's (slot, column) advanced by adds, trips of 8 loads before
+    their stores, every entry written once) gives the plain version's ids,
+    rows and count and JAX's, at odd MO, with caps below and above the
+    count."""
+    rng = np.random.default_rng(n * 5 + mo + cap)
+    table = rng.integers(-999, 999, (n, mo)).astype(np.int32)
+    for frac in FRACS:
+        m = rng.random(n) < frac
+        want = tew_ref.compact_gather_ref(torch.from_numpy(m),
+                                          torch.from_numpy(table), cap, -3)
+        ja, ra, ca = jew_ops.compact_gather(jnp.asarray(m), jnp.asarray(table),
+                                            cap, fill=-3)
+        _eq(want[0], ja)
+        _eq(want[1], ra)
+        assert int(want[2]) == int(ca)
+        for blocks in (1, 2, 3, 32):
+            got = tew_ref.compact_gather_sched_ref(
+                torch.from_numpy(m), torch.from_numpy(table), cap, -3,
+                blocks=blocks)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def test_horizon_and_gather_wrappers_refuse_cpu_and_bad_inputs():
+    """K5's and K7's CUDA wrappers raise the same ValueErrors as before on
+    what their kernels do not take, before any build or launch."""
+    build.reset_launches()
+    tc = torch.zeros(6, dtype=torch.float64)
+    pre = torch.zeros((2, 6), dtype=torch.int32)
+    dly = torch.zeros((2, 6), dtype=torch.float64)
+    kw = dict(t_end=1.0, horizon_cap=1.0)
+    with pytest.raises(ValueError, match="t_clock must be"):
+        tew_cuda.horizon_score_cuda(tc, pre, dly, **kw)
+    m = torch.ones(6, dtype=torch.bool)
+    with pytest.raises(ValueError, match="contiguous bool"):
+        tew_cuda.compact_gather_cuda(m, pre.T.contiguous(), 2, 6)
+    with pytest.raises(ValueError, match="contiguous bool"):
+        tew_cuda.compact_gather_cuda(m[::2], pre, 2, 6)
+    assert all(v == 0 for v in build.launches().values())
 
 
 @pytest.mark.parametrize("E,n_keys,max_rank", [(1, 4, 3), (37, 12, 4),

@@ -202,6 +202,47 @@ def test_fused_horizon_select_bitwise(k_select):
     assert np.array_equal(s_t.numpy(), np.asarray(s_r))
 
 
+SPECIAL_CLOCKS = {"none": None, "t_end": 20.0, "inf": np.inf,
+                  "-inf": -np.inf, "nan": np.nan}
+
+
+@pytest.mark.parametrize("special", list(SPECIAL_CLOCKS))
+@pytest.mark.parametrize("K", [1, 5, 16])
+def test_horizon_plain_matches_jax_at_edge_clocks(K, special):
+    """K5's plain version against the JAX package's
+    ``fused_horizon_select`` (the Pallas kernel in interpret mode) and
+    ``ref.horizon_score_ref``, at K = 1, 5 and 16 in-edges: clocks at
+    t_end, +-inf or NaN on a tenth of the neurons and neuron 0, horizon
+    caps that put a clock within eps of its horizon on both sides, and
+    in-edges of ~0 delay whose candidates lie within eps of a clock.
+    NaNs compare equal to NaNs."""
+    N = 300
+    rng = np.random.default_rng(K * 11 + len(special))
+    pre = rng.integers(0, N, (K, N)).astype(np.int32)
+    dly = rng.uniform(0.1, 3.0, (K, N))
+    near = rng.random(N) < 0.2
+    dly[:, near] = rng.uniform(1e-13, 3e-12, (K, int(near.sum())))
+    tc = rng.uniform(0.0, 20.0, N)
+    if SPECIAL_CLOCKS[special] is not None:
+        tc[rng.random(N) < 0.1] = SPECIAL_CLOCKS[special]
+        tc[0] = SPECIAL_CLOCKS[special]
+    tc_j, pre_j, dly_j = jnp.asarray(tc), jnp.asarray(pre), jnp.asarray(dly)
+    cand = tc_j[pre_j] + dly_j
+    for cap in (2.0, 0.5e-12, 1e-12, 2e-12):
+        kw = dict(t_end=20.0, horizon_cap=cap)
+        hor_j, run_j = jew_ops.fused_horizon_select(tc_j, pre_j, dly_j, **kw)
+        hor_t, run_t = tew_ops.fused_horizon_select(_t(tc), _t(pre), _t(dly),
+                                                    **kw)
+        np.testing.assert_array_equal(hor_t.numpy(), np.asarray(hor_j))
+        np.testing.assert_array_equal(run_t.numpy(), np.asarray(run_j))
+        h_r, s_r = jew_ref.horizon_score_ref(cand, tc_j, **kw)
+        h_t, s_t = tew_ops.horizon_score(_t(tc), _t(pre), _t(dly), **kw)
+        np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_r))
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_r))
+        if special == "none" and cap < 1e-12:     # within eps: not runnable
+            assert not bool(run_t.any())
+
+
 def test_select_threshold_matches_jax():
     rng = np.random.default_rng(3)
     score = rng.uniform(0, 5, 500)
