@@ -70,17 +70,17 @@ Phases, each reported on its own lines:
  14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
      the single-host ``run_fap_vardt(step_budget=8)``, and four card ranks
      == four CPU ranks bitwise (spike trains, steps, final states);
- 15. flash attention K10's three kernels against their plain version on
+ 15. flash attention K10's four kernels against their plain version on
      the card, bf16 (bf16 and float32 out) and float32, each case checking
-     which kernel ran: the serve path's shapes (prefill B=4, S=2048, H=9,
-     Hkv=3, D=64; decode at kv_len 1, 37, 255, 256, 2048 and 4096), decode
-     with several query rows, ragged Sq and Skv, bidirectional, groups 1,
-     3 and 8, D 16/64/128 (deepseek-7b's and qwen2-72b's heads); times of
-     the prefill and of decode at kv_len 256 and 4096 (bf16 in), and of
-     the float32 kernel at the prefill (printed only), beside the plain
-     version,
+     which kernel ran (all four must): the serve path's shapes (prefill
+     B=4, S=2048, H=9, Hkv=3, D=64; decode at kv_len 1, 37, 255, 256, 2048
+     and 4096), decode with several query rows, ragged Sq and Skv,
+     bidirectional, groups 1, 3 and 8, D 16/64/128 (deepseek-7b's and
+     qwen2-72b's heads); times of the prefill and of decode at kv_len 256
+     and 4096 (bf16 in), and of the float32 kernels at the prefill and at
+     decode kv_len 4096 (printed only), beside the plain version,
      ``scaled_dot_product_attention`` (a yardstick only) and the bound;
-     the decode kernel's device time by kv splits;
+     the decode kernels' device time by kv splits;
  16. the LM serve path at full width: smollm-135m on the card from a
      seeded generator, ``lm.prefill`` of 4 x 2048 tokens (K10 once per
      layer, all by the prefill kernel), then ``launch.serve.lm_main`` at
@@ -88,12 +88,13 @@ Phases, each reported on its own lines:
      launched 30 times per decode step, all by the decode kernel; tok/s,
      ms per step, peak memory;
  17. the LM path card against CPU: reduced smollm-135m with the same
-     weights in float32 (K10's float32 kernel) and bf16 compute (its
-     decode kernel), a short serve run whose logits agree within a stated
+     weights in float32 (K10's float32 kernels) and bf16 compute (its bf16
+     kernels): a 2 x 40-token prefill (the prefill kernels) and a short
+     serve run (the decode kernels) whose logits agree within a stated
      tolerance, the CPU's greedy picks differing from the card's only
-     where its top two logits lie within it; the float32 kernel timed at
-     the shape this run called it with most, at the median kv length of
-     those calls (its ``kernels`` entry);
+     where its top two logits lie within it; the float32 kernels timed at
+     the shapes these runs called them with most, at the median kv length
+     of those calls (their ``kernels`` entries);
  18. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path (device busy share,
@@ -141,7 +142,8 @@ REPLACES = {
     "compact_gather": "src/repro/kernels/event_wheel/event_wheel.py:176",
     "segment_rank": "src/repro/kernels/event_wheel/event_wheel.py:234",
     "compact_rows": "src/repro/kernels/event_wheel/event_wheel.py:256",
-    "flash_attention_f32": "src/repro/kernels/attention/flash.py:65",
+    "flash_attention_f32_decode": "src/repro/kernels/attention/flash.py:65",
+    "flash_attention_f32_prefill": "src/repro/kernels/attention/flash.py:65",
     "flash_attention_prefill": "src/repro/kernels/attention/flash.py:65",
     "flash_attention_decode": "src/repro/kernels/attention/flash.py:65",
 }
@@ -153,11 +155,12 @@ SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "compact_gather": f"{SRC}/compact.cu",
           "segment_rank": f"{SRC}/segment_rank.cu",
           "compact_rows": f"{SRC}/compact.cu",
-          "flash_attention_f32": f"{SRC}/flash_attention.cu",
+          "flash_attention_f32_decode": f"{SRC}/flash_decode.cu",
+          "flash_attention_f32_prefill": f"{SRC}/flash_attention.cu",
           "flash_attention_prefill": f"{SRC}/flash_prefill.cu",
           "flash_attention_decode": f"{SRC}/flash_decode.cu"}
-K10_KERNELS = ("flash_attention_f32", "flash_attention_prefill",
-               "flash_attention_decode")
+K10_KERNELS = ("flash_attention_f32_decode", "flash_attention_f32_prefill",
+               "flash_attention_prefill", "flash_attention_decode")
 ROW_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
@@ -166,7 +169,7 @@ OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "compact_gather_kernel", "segment_rank_kernel",
                "compact_rows_kernel", "flash_attention_kernel",
                "flash_prefill_kernel", "flash_decode_kernel",
-               "flash_decode_merge_kernel")
+               "flash_decode_f32_kernel", "flash_decode_merge_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
@@ -1453,12 +1456,11 @@ class _AttnRecorder:
 
 
 def phase_attention(dev):
-    """K10's three kernels against their plain version in bf16 (both new
-    kernels) and float32 at the serve path's shapes and the larger
-    configs' head shapes, each case checking which kernel ran; timings of
-    the prefill and of decode steps beside the plain version and
-    ``scaled_dot_product_attention`` (a yardstick only: the port never
-    calls it)."""
+    """K10's four kernels against their plain version in bf16 and float32
+    at the serve path's shapes and the larger configs' head shapes, each
+    case checking which kernel ran; timings of the prefill and of decode
+    steps beside the plain version and ``scaled_dot_product_attention`` (a
+    yardstick only: the port never calls it)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.attention import ops as a_ops
@@ -1487,7 +1489,7 @@ def phase_attention(dev):
         say("attention", f"{tag}: max abs err {e:.3e}, {used:.3f} of the "
             "limit")
     kinds = {t.rsplit("(", 1)[1][:-1] for t in errs}
-    if kinds != {"f32", "prefill", "decode"}:
+    if kinds != {"f32_decode", "f32_prefill", "prefill", "decode"}:
         raise AssertionError(f"phase 15 ran only the {sorted(kinds)} kernels")
     say("attention", f"K10 agrees with its plain version on {len(errs)} "
         f"cases (limit {ATTN_TOL} * (1 + |want|), plus for bf16 inputs "
@@ -1496,17 +1498,22 @@ def phase_attention(dev):
     cases = {c[0]: c for c in ATTN_CASES}
     rows = {row: _attn_row(dev, torch.bfloat16, cases[case])
             for row, case in ATTN_TIMED}
-    # the float32 kernel at the prefill shape; the kernels line takes its
-    # row at phase 17's own shapes, where its launches are counted
-    _attn_row(dev, torch.float32, cases["prefill"])
-    for case in ("decode kv_len=256", "decode kv_len=4096"):
+    # the float32 kernels at the prefill and at a 4096-row cache; the
+    # kernels line takes their rows at phase 17's own shapes, where their
+    # launches are counted
+    for case in ("prefill", "decode kv_len=4096"):
+        _attn_row(dev, torch.float32, cases[case])
+    for dtype, case in ((torch.bfloat16, "decode kv_len=256"),
+                        (torch.bfloat16, "decode kv_len=4096"),
+                        (torch.float32, "decode kv_len=4096")):
         B, H, Hkv, Sq, Skv, D, _, kv = cases[case][1:]
-        q, k, v = _attn_inputs(dev, torch.bfloat16, B, H, Hkv, Sq, Skv, D)
+        q, k, v = _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D)
         times = {n: device_ms(lambda: flash.flash_attention_cuda(
             q, k, v, offset=kv - 1, kv_len=kv, out_dtype=torch.float32,
             splits=n)) for n in (1, 2, 4, 8, 16, 32)}
-        say("attention", f"{case}: device ms by kv splits per (batch, kv "
-            f"head): " + ", ".join(f"{n}: {t:.5f}" for n, t in times.items())
+        say("attention", f"{case} {str(dtype)[6:]}: device ms by kv splits "
+            f"per (batch, kv head): " + ", ".join(
+                f"{n}: {t:.5f}" for n, t in times.items())
             + f"; the default takes {flash.decode_splits(B, Hkv, kv)[0]}")
     return rows
 
@@ -1599,14 +1606,18 @@ def phase_serve(dev, smi):
 
 
 # --------------------------------------------------------------- phase 17 --
-def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
+def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48,
+                         prompt=(2, 40)):
     """Reduced smollm-135m with the same weights, card (K10) against CPU
-    (plain versions), in float32 and in bf16 compute: a short serve run on
-    the card records its logits and picks; the CPU run replays the card's
-    picks (so both runs follow one token path) and checks its own logits
-    and its own greedy picks against them.  Where the CPU's greedy pick
-    differs from the card's, the CPU's top two logits must lie within the
-    tolerance; the phase counts those picks."""
+    (plain versions), in float32 and in bf16 compute.  ``lm.prefill`` of
+    ``prompt`` (batch, tokens) seeded tokens: 80 query rows per kv head, so
+    the prefill kernel; logits within the tolerance.  Then a short serve
+    run (decode steps, so the decode kernel) on the card records its
+    logits and picks; the CPU run replays the card's picks (so both runs
+    follow one token path) and checks its own logits and its own greedy
+    picks against them.  Where the CPU's greedy pick differs from the
+    card's, the CPU's top two logits must lie within the tolerance; the
+    phase counts those picks."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1614,28 +1625,50 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
     from repro_torch.launch import serve
     from repro_torch.models import lm
     out = {}
-    kernel = {"float32": "flash_attention_f32",
+    kernel = {"float32": "flash_attention_f32_decode",
               "bfloat16": "flash_attention_decode"}
+    pre_kernel = {"float32": "flash_attention_f32_prefill",
+                  "bfloat16": "flash_attention_prefill"}
     for cd in ("float32", "bfloat16"):
         cfg = dataclasses.replace(get_config(LM_ARCH).reduced(),
                                   compute_dtype=cd)
         queue = serve.make_queue(cfg, requests, 0)
         seen = []
+        params = lm.init_params(cfg, 0, device=dev)
+        cpu_params = lm.init_params(cfg, 0, device="cpu")
+        toks = torch.randint(0, cfg.vocab, prompt,
+                             generator=torch.Generator().manual_seed(1))
+        build.reset_launches()
+        with _AttnRecorder() as pre_calls:
+            got = lm.prefill(cfg, params, {"tokens": toks}, device=dev)
+        pre_counts = build.launches()
+        want = lm.prefill(cfg, cpu_params, {"tokens": toks}, device="cpu")
+        pre_tol = LM_TOL[cd] * (1.0 if cd == "float32" else
+                                float(want.abs().max()))
+        pre_err = float((got.cpu() - want).abs().max())
+        if not pre_err <= pre_tol:
+            raise AssertionError(f"{cd}: card and CPU prefill logits differ "
+                                 f"by {pre_err:.3e} > {pre_tol:.3e}")
+        if pre_counts[pre_kernel[cd]] != pre_counts["flash_attention"] or \
+                pre_counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"{cd}: the prefill did not go through "
+                                 f"{pre_kernel[cd]} alone, once per layer "
+                                 f"({pre_counts})")
 
         def record(logits):
             seen.append(logits.cpu())
             return serve.greedy(logits)
 
-        params = lm.init_params(cfg, 0, device=dev)
         build.reset_launches()
         with _AttnRecorder() as calls:
             card = serve.serve_requests(cfg, params, queue, slots, max_new,
                                         cache_len, device=dev, pick=record)
         counts = build.launches()
-        if counts[kernel[cd]] != counts["flash_attention"] or \
-                not counts["flash_attention"]:
+        if counts[kernel[cd]] + counts[pre_kernel[cd]] != \
+                counts["flash_attention"] or not counts[kernel[cd]]:
             raise AssertionError(f"{cd}: the card run did not go through "
-                                 f"{kernel[cd]} alone ({counts})")
+                                 f"{kernel[cd]} and {pre_kernel[cd]} alone "
+                                 f"({counts})")
         tol = LM_TOL[cd] * (1.0 if cd == "float32" else
                             max(float(x.abs().max()) for x in seen))
         steps = iter(seen)
@@ -1658,31 +1691,38 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48):
                 differ += 1
             return pick
 
-        cpu = serve.serve_requests(cfg, lm.init_params(cfg, 0, device="cpu"),
-                                   queue, slots, max_new, cache_len,
-                                   device="cpu", pick=replay)
+        cpu = serve.serve_requests(cfg, cpu_params, queue, slots, max_new,
+                                   cache_len, device="cpu", pick=replay)
         if next(steps, None) is not None or card.done != requests or \
                 card.nonfinite_steps or cpu.nonfinite_steps:
             raise AssertionError(f"{cd}: the card and CPU runs diverged")
         out[cd] = dict(steps=card.decode_steps, max_abs_err=worst, tol=tol,
                        picks_differed=differ, picks=len(seen) * slots,
-                       kernel=kernel[cd], launches=counts[kernel[cd]])
+                       kernel=kernel[cd], launches=counts[kernel[cd]],
+                       prefill_max_abs_err=pre_err, prefill_tol=pre_tol,
+                       prefill_kernel=pre_kernel[cd],
+                       prefill_launches=pre_counts[pre_kernel[cd]])
         if cd == "float32":
-            # K10's float32 kernel at this path's own shapes: the shape it
-            # was called with most, at the median kv length of those calls
-            n, (q, k, v, causal, offset, kv_len) = calls.commonest()
-            shapes = {f"q{a} k{b}": len(c) for (a, b), c in
-                      calls.seen.items()}
-            say("lm-vs-cpu", f"float32 K10 calls by shape {shapes}; timed at "
-                f"the commonest ({n} calls), at its median kv length")
-            out[cd]["row"] = _attn_row_on(f"reduced {LM_ARCH} float32",
-                                          q, k, v, causal, offset, kv_len)
-        say("lm-vs-cpu", f"reduced {LM_ARCH} compute {cd}: {requests} "
-            f"requests, {card.decode_steps} decode steps, logits max abs err "
-            f"{worst:.3e} (tol {tol:.3e}), {counts[kernel[cd]]} launches "
-            f"of {kernel[cd]}; CPU greedy picks differed from "
-            f"the card's on {differ} of {len(seen) * slots}, each within "
-            f"the tolerance of a top-2 tie")
+            # K10's float32 kernels at this path's own shapes: the shape
+            # each was called with most, at the median kv length of those
+            for key, rec in (("row", calls), ("prefill_row", pre_calls)):
+                n, (q, k, v, causal, offset, kv_len) = rec.commonest()
+                shapes = {f"q{a} k{b}": len(c) for (a, b), c in
+                          rec.seen.items()}
+                say("lm-vs-cpu", f"float32 K10 calls by shape {shapes}; "
+                    f"timed at the commonest ({n} calls), at its median kv "
+                    "length")
+                out[cd][key] = _attn_row_on(f"reduced {LM_ARCH} float32",
+                                            q, k, v, causal, offset, kv_len)
+        say("lm-vs-cpu", f"reduced {LM_ARCH} compute {cd}: prefill "
+            f"{prompt[0]} x {prompt[1]} tokens, logits max abs err "
+            f"{pre_err:.3e} (tol {pre_tol:.3e}), "
+            f"{pre_counts[pre_kernel[cd]]} launches of {pre_kernel[cd]}; "
+            f"{requests} requests, {card.decode_steps} decode steps, logits "
+            f"max abs err {worst:.3e} (tol {tol:.3e}), "
+            f"{counts[kernel[cd]]} launches of {kernel[cd]}; CPU greedy "
+            f"picks differed from the card's on {differ} of "
+            f"{len(seen) * slots}, each within the tolerance of a top-2 tie")
     return out
 
 
@@ -1794,8 +1834,11 @@ def main(argv=None):
     serve_launches, lm_stats = phase_serve(dev, smi)
     launches.update(serve_launches)
     lm_vs_cpu = phase_lm_card_vs_cpu(dev)
-    launches["flash_attention_f32"] = lm_vs_cpu["float32"]["launches"]
-    rows["flash_attention_f32"] = lm_vs_cpu["float32"].pop("row")
+    f32 = lm_vs_cpu["float32"]
+    launches["flash_attention_f32_decode"] = f32["launches"]
+    launches["flash_attention_f32_prefill"] = f32["prefill_launches"]
+    rows["flash_attention_f32_decode"] = f32.pop("row")
+    rows["flash_attention_f32_prefill"] = f32.pop("prefill_row")
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",

@@ -1,5 +1,5 @@
-"""K1, K2, K3, K5, K6, K7, K8 and K9 of the port, two source trees in turns
-on one NVIDIA card.
+"""K1, K2, K3, K5, K6, K7, K8, K9 and K10 of the port, two source trees in
+turns on one NVIDIA card.
 
     python3 scripts/kernel_ab.py BASE_TREE [NEW_TREE] [--order ABBA]
                                  [--t-end MS]
@@ -28,13 +28,24 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   E = 128 x the largest out-degree) at max_rank 19; K9 ``spike_compact``
   at D = 4, M = 4096, cap 2048 on the transport's transposed mask
   (strides (1, D)) at the SPMD path's density (1436 of 16384 set) and a
-  broadcast value row.  Inputs come from one seed, the same in both
-  trees.  For each: ``ms`` (CUDA events
+  broadcast value row; K10 (``ops.flash_attention``, float32 out, inputs
+  from ``chip_smoke._attn_inputs``) in float32 at phase 17's commonest
+  decode shape (B 3, H 4, Hkv 2, D 16, Sq 1 against a 48-row cache at its
+  median kv_len 23: ``k10_f32_decode``), at a 4096-row cache (B 4, H 9,
+  Hkv 3, D 64: ``k10_f32_decode_4096``) and at the serve model's 4 x 2048
+  causal prefill (``k10_f32_prefill``), and in bf16 at the decode step
+  against 256 and 4096 rows and the same prefill (``k10_bf16_*``).
+  Inputs come from one seed, the same in both trees.  For each: ``ms``
+  (CUDA events
   around each of 25 calls, median), ``device_ms`` (a CUDA graph of 50
   launches, median of 5 replays, over 50), ``host_us`` (wall of 1000 calls
   back to back, median of 5: the wrapper's host work), and ``bitwise``
-  against the plain version; beside K6 ``torch.nonzero``'s ``ms`` and
-  device time (``torch.profiler``, it syncs);
+  against the plain version (K10: ``max_abs_err`` instead, the kernel
+  that ran, ``scaled_dot_product_attention``'s device time as a
+  yardstick, and for bf16 inputs ``sha256`` of the bf16 and the float32
+  output's bytes, to hold them bitwise between trees); beside K6
+  ``torch.nonzero``'s ``ms`` and device time (``torch.profiler``, it
+  syncs);
 * ``launch_floor_ms``: the device time of a one-element in-place
   ``torch.add_`` in the same graph harness, the least any launch costs;
 * ``dense``, ``active`` and ``2a``: ``chip_smoke.py`` phase 3's dense 2c
@@ -42,7 +53,7 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   ``--t-end`` ms (0 skips them): wall per round (2c) or per window (2a),
   with their K1/K2/K3/K6/K8 launches.  These are host-bound; they are
   reported, and no gain is claimed from them;
-* ``ptxas``: registers, shared memory and spills of the eight kernels,
+* ``ptxas``: registers, shared memory and spills of the kernels,
   from nvcc's ``-Xptxas -v`` (runs that built the library).
 
 One JSON line per run, then the card's name and power limit.  Compare two
@@ -75,12 +86,14 @@ from repro_torch.kernels.event_wheel import ref as ew_ref
 from repro_torch.kernels.hines import ops as h_ops
 from repro_torch.kernels.hines import ref as h_ref
 
-build.build_all(("hines", "hh_rhs", "horizon", "compact", "segment_rank"))
+build.build_all(("hines", "hh_rhs", "horizon", "compact", "segment_rank",
+                 "flash_attention", "flash_prefill", "flash_decode"))
 dev = torch.device("cuda")
 N = cs.N_MAIN
 
 
 def host_us(fn, calls=1000, reps=5):
+    # (calls back to back: a device-bound call measures its device time)
     for _ in range(50):
         fn()
     torch.cuda.synchronize()
@@ -167,6 +180,52 @@ pv = torch.from_numpy(gen.random(M) * 20.0).to(dev)[None, :].expand(D, M)
 out["k9"] = timed(lambda: ew_ops.spike_compact(pm, pv, cap),
                   ew_ref.compact_rows_ref(pm, pv, cap))
 
+import hashlib
+from repro_torch.kernels.attention import ops as a_ops
+from repro_torch.kernels.attention import ref as a_ref
+
+
+def k10(dtype, B, H, Hkv, Sq, Skv, D, kv_len, calls):
+    q, k, v = cs._attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D)
+    offset = None if kv_len is None else kv_len - Sq
+    kw = dict(causal=True, offset=offset, kv_len=kv_len)
+    fn = lambda: a_ops.flash_attention(q, k, v, out_dtype=torch.float32, **kw)
+    build.reset_launches()
+    got = fn()
+    ran = [n for n, c in build.launches().items()
+           if c and n.startswith("flash_attention_")]
+    want = a_ref.flash_attention_ref(q, k, v, True, offset, kv_len,
+                                     torch.float32)
+    kv = kv_len or Skv
+    ks, vs = k[:, :, :kv], v[:, :, :kv]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(kernel=ran, max_abs_err=float((got - want).abs().max()),
+               ms=cs.cuda_ms(fn), device_ms=cs.device_ms(fn),
+               host_us=host_us(fn, calls=calls),
+               sdpa_device_ms=cs.device_ms(lambda: sdpa(
+                   q, ks, vs, is_causal=Sq > 1, enable_gqa=True)))
+    if dtype == torch.bfloat16:
+        for o in (torch.bfloat16, torch.float32):
+            x = a_ops.flash_attention(q, k, v, out_dtype=o, **kw)
+            row[f"sha256_{str(o)[6:]}"] = hashlib.sha256(
+                x.float().cpu().contiguous().numpy().tobytes()).hexdigest()
+    return row
+
+
+torch.backends.cuda.matmul.allow_tf32 = False      # plain version in fp32
+for key, dtype, shape, calls in (
+        ("k10_f32_decode", torch.float32, (3, 4, 2, 1, 48, 16, 23), 1000),
+        ("k10_f32_decode_4096", torch.float32, (4, 9, 3, 1, 4096, 64, 4096),
+         1000),
+        ("k10_f32_prefill", torch.float32, (4, 9, 3, 2048, 2048, 64, None),
+         50),
+        ("k10_bf16_decode", torch.bfloat16, (4, 9, 3, 1, 256, 64, 256), 1000),
+        ("k10_bf16_decode_4096", torch.bfloat16,
+         (4, 9, 3, 1, 4096, 64, 4096), 1000),
+        ("k10_bf16_prefill", torch.bfloat16,
+         (4, 9, 3, 2048, 2048, 64, None), 200)):
+    out[key] = k10(dtype, *shape, calls)
+
 
 def launches():
     n = build.launches()
@@ -214,7 +273,11 @@ for src, kern in (("hines", "hines_factor_kernel"),
                   ("compact", "compact_ids_kernel"),
                   ("compact", "compact_gather_kernel"),
                   ("compact", "compact_rows_kernel"),
-                  ("segment_rank", "segment_rank_kernel")):
+                  ("segment_rank", "segment_rank_kernel"),
+                  ("flash_attention", "flash_attention_kernel"),
+                  ("flash_decode", "flash_decode_f32_kernel"),
+                  ("flash_decode", "flash_decode_kernel"),
+                  ("flash_prefill", "flash_prefill_kernel")):
     entry = None
     for line in build.ptxas_log(src).splitlines():
         if "Compiling entry function" in line:

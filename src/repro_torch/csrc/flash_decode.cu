@@ -1,23 +1,27 @@
-// Flash attention (K10), the decode kernel for Hopper (sm_90a): bf16
-// inputs, a few query rows per kv head against a long cache.
+// Flash attention (K10), the decode kernels for Hopper (sm_90a): a few query
+// rows per kv head against a long cache, bf16 inputs on the tensor cores
+// and float32 inputs on the CUDA cores.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/attention/flash.py::flash_attention_pallas
 //   (_flash_kernel at the decode geometry: offset, kv_len)
-// for bfloat16 inputs whose Sq * group is at most 64
+// for inputs whose Sq * group is at most 64
 // (kernels/attention/flash.py::variant): every serve step, Sq = 1.
 //
 // Function: that of flash_prefill.cu (s = (q . k) / sqrt(D) in float32,
 // masks at the finite -1e30, p rounded to bf16 for the product with v and
 // summed unrounded into l, acc / max(l, 1e-30)), with exp(x) computed as
-// exp2(x * log2(e)).
+// exp2(x * log2(e)); for float32 inputs that of flash_attention.cu (p
+// unrounded, exp as expf, the products explicit fmaf: TF32 would miss the
+// float32 tolerance of 1e-5).
 //
-// What bounds it on this card: bytes.  A step reads the first kv_len rows
+// What bounds them on this card: bytes.  A step reads the first kv_len rows
 // of K and V once: at the serve shape (B = 4, Hkv = 3, D = 64, kv_len
-// 256) 786 KB, 0.00024 ms at 3.35 TB/s, against 0.2 MFLOP.
+// 256) 786 KB in bf16, 0.00024 ms at 3.35 TB/s, against 0.2 MFLOP; in
+// float32 at kv_len 4096 25.2 MB, 0.0075 ms.
 //
-// Design: one block of four warps per (batch, kv head) holds all the
-// group * Sq query rows of that kv head (row r: query r / group of head
+// Design (bf16): one block of four warps per (batch, kv head) holds all
+// the group * Sq query rows of that kv head (row r: query r / group of head
 // hk * group + r % group), so each K and V row is read once for the whole
 // GQA group.  64-row K and V tiles go through a two-stage cp.async ring in
 // shared memory (16-byte copies, rows padded by 16 bytes so that the
@@ -34,6 +38,11 @@
 // also splits the kv tiles over blocks (grid y); each block then writes
 // its merged (m, l, acc) to a float32 scratch and a second small kernel
 // merges the splits the same way.
+//
+// Design (float32, flash_decode_f32_kernel): the same blocks, ring, kv
+// splits, scratch and merge kernel, with the group's rows staged once in
+// shared memory and each tile's scores, softmax and P V shared out over
+// the block's threads (see the kernel).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,19 +76,20 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Rows first .. first + 63 of a [rows, D] view into a [64][D + 8] tile;
-// rows at and past n_valid are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
+// Rows first .. first + 63 of a [rows, D] view of T (bf16 or float) into a
+// [64][D + 16 bytes] tile; rows at and past n_valid are zero-filled.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* base,
                                           long long rs, int first,
                                           int n_valid) {
-  constexpr int CPR = D / 8, DS = D + 8;
+  constexpr int VPC = 16 / (int)sizeof(T);   // values per 16-byte chunk
+  constexpr int CPR = D / VPC, DS = D + VPC;
 #pragma unroll
   for (int idx = threadIdx.x; idx < BK * CPR; idx += THREADS) {
     const int r = idx / CPR, c = idx % CPR;
     const bool in = first + r < n_valid;
-    const bf16* src = base + (long long)(in ? first + r : 0) * rs + c * 8;
-    cp_async16(smem_u32(dst + r * DS + c * 8), src, in);
+    const T* src = base + (long long)(in ? first + r : 0) * rs + c * VPC;
+    cp_async16(smem_u32(dst + r * DS + c * VPC), src, in);
   }
 }
 
@@ -330,6 +340,238 @@ __global__ void __launch_bounds__(THREADS) flash_decode_merge_kernel(
   }
 }
 
+// The float32 decode kernel, on the CUDA cores.  One block of four warps
+// per (batch, kv head, kv split) holds the group's R = Sq * group query
+// rows in shared memory; the K and V tiles come through the same ring as
+// the bf16 kernel's, rows padded by 16 bytes.  Per tile, three steps
+// between barriers:
+//   scores  thread t takes kv column t % 64 and the rows t / 64, + 2, ...,
+//           RB rows at a time: q read by broadcast, the column's K row
+//           as float4 (conflict-free on the padded rows), explicit fmaf;
+//           masked scores are -1e30;
+//   softmax a warp per row: the row max and sum by shuffles, p = exp(s -
+//           m_new) once per score, the running (m, l) and this tile's
+//           rescale alpha kept in shared memory;
+//   P V     thread t owns dims 4 (t % (D/4)) .. + 3 of the rows t / (D/4),
+//           + 128 / (D/4), ...: acc *= alpha, then acc += p v over the
+//           tile's columns below kv_end, p as float4 from shared memory.
+// SMALL (R <= 4: a serve step of a GQA group of up to 4, smollm-135m's 3
+// among them) scores two rows at a time and gives a thread at most one row
+// of acc, so that no thread issues predicated-off products for rows it
+// lacks; the other instantiation takes up to 64 rows.
+constexpr int PS = BK + 4;          // padded row of the score / p tile
+constexpr int SMALL_ROWS = 4;       // R of the SMALL instantiation, at most
+
+template <int D, bool SMALL>
+__global__ void __launch_bounds__(THREADS) flash_decode_f32_kernel(
+    const float* __restrict__ q, long long qsb, long long qsh, long long qss,
+    const float* __restrict__ k, long long ksb, long long ksh, long long kss,
+    const float* __restrict__ v, long long vsb, long long vsh, long long vss,
+    float* __restrict__ o, long long osb, long long osh, long long oss,
+    float* __restrict__ part, int Hkv, int group, int Sq, int kv_len,
+    int offset, int causal, float scale, int tiles_per_split) {
+  constexpr int DS = D + 4;         // padded row of a shared tile
+  constexpr int D4 = D / 4;         // float4 chunks of a row
+  constexpr int RPH = THREADS / D4; // row phases of the P V step
+  constexpr int RB = SMALL ? 2 : 4;  // query rows a thread scores at once
+  constexpr int NJ = SMALL ? 1 : (MAX_ROWS + RPH - 1) / RPH;  // acc rows
+  extern __shared__ uint4 smem[];
+  float* Ks = reinterpret_cast<float*>(smem);        // [2][BK][DS]
+  float* Vs = Ks + 2 * BK * DS;                       // [2][BK][DS]
+  const int R = Sq * group;
+  float* Qs = Vs + 2 * BK * DS;                       // [R][D]
+  float* SP = Qs + R * D;                             // [R][PS]
+  float* Ms = SP + R * PS;                            // [R] running max
+  float* Ls = Ms + MAX_ROWS;                          // [R] running sum
+  float* As = Ls + MAX_ROWS;                          // [R] tile rescale
+
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int kv_end = causal ? min(kv_len, Sq + offset) : kv_len;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int t0 = split * tiles_per_split;
+  const int t1 = min(n_tiles, t0 + tiles_per_split);
+  const float* kp = k + b * ksb + hk * ksh;
+  const float* vp = v + b * vsb + hk * vsh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = threadIdx.x % BK, rp = threadIdx.x / BK;
+  const int d4 = threadIdx.x % D4, rph = threadIdx.x / D4;
+
+  // Q rows (row r: query r / group of head hk * group + r % group), once,
+  // in the first tile's copy group
+  for (int idx = threadIdx.x; idx < R * D4; idx += THREADS) {
+    const int r = idx / D4, x = idx % D4;
+    const float* src = q + b * qsb + (long long)(hk * group + r % group) *
+                       qsh + (long long)(r / group) * qss + x * 4;
+    cp_async16(smem_u32(Qs + r * D + x * 4), src, true);
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    Ms[r] = NEG_INF;
+    Ls[r] = 0.f;
+  }
+  if (t0 < t1) {
+    load_tile<D>(Ks, kp, kss, t0 * BK, kv_end);
+    load_tile<D>(Vs, vp, vss, t0 * BK, kv_end);
+  }
+  cp_async_commit();
+
+  float4 acc[NJ];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) acc[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int j = t0; j < t1; ++j) {
+    const int st = (j - t0) & 1;
+    if (j + 1 < t1) {
+      load_tile<D>(Ks + (st ^ 1) * BK * DS, kp, kss, (j + 1) * BK, kv_end);
+      load_tile<D>(Vs + (st ^ 1) * BK * DS, vp, vss, (j + 1) * BK, kv_end);
+    }
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const float* Kt = Ks + st * BK * DS;
+    const float* Vt = Vs + st * BK * DS;
+
+    // scores of column col against rows rp, rp + 2, ...
+    const int col = j * BK + c;
+    const float4* kr = reinterpret_cast<const float4*>(Kt + c * DS);
+    for (int r0 = rp; r0 < R; r0 += 2 * RB) {
+      const float4* qr[RB];
+      float s[RB];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        qr[i] = reinterpret_cast<const float4*>(Qs + min(r0 + 2 * i, R - 1) *
+                                                         D);
+        s[i] = 0.f;
+      }
+#pragma unroll
+      for (int x = 0; x < D4; ++x) {
+        const float4 kk = kr[x];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const float4 qq = qr[i][x];
+          s[i] = fmaf(qq.x, kk.x, s[i]);
+          s[i] = fmaf(qq.y, kk.y, s[i]);
+          s[i] = fmaf(qq.z, kk.z, s[i]);
+          s[i] = fmaf(qq.w, kk.w, s[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const int r = r0 + 2 * i;
+        if (r < R) {
+          const bool ok =
+              col < kv_len && (!causal || col <= r / group + offset);
+          SP[r * PS + c] = ok ? s[i] * scale : NEG_INF;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax, a warp per row
+    for (int r = warp; r < R; r += THREADS / 32) {
+      float* sr = SP + r * PS;
+      const float s0 = sr[lane], s1 = sr[lane + 32];
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int w = 16; w; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_old = Ms[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      sr[lane] = p0;
+      sr[lane + 32] = p1;
+      float sum = p0 + p1;
+#pragma unroll
+      for (int w = 16; w; w >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        As[r] = alpha;
+        Ls[r] = alpha * Ls[r] + sum;
+        Ms[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = alpha * acc + p v over the columns below kv_end (p is 0 past
+    // them, or V's zero-filled rows are)
+    const int nc4 = (min(BK, kv_end - j * BK) + 3) / 4;
+    const float4* vt = reinterpret_cast<const float4*>(Vt) + d4;
+    if (!SMALL || rph < R) {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int r = rph + RPH * jj;
+        if (SMALL || r < R) {
+          const float a = As[r];
+          acc[jj].x *= a;
+          acc[jj].y *= a;
+          acc[jj].z *= a;
+          acc[jj].w *= a;
+        }
+      }
+#pragma unroll 4
+      for (int c4 = 0; c4 < nc4; ++c4) {
+        const float4 v0 = vt[(4 * c4 + 0) * (DS / 4)];
+        const float4 v1 = vt[(4 * c4 + 1) * (DS / 4)];
+        const float4 v2 = vt[(4 * c4 + 2) * (DS / 4)];
+        const float4 v3 = vt[(4 * c4 + 3) * (DS / 4)];
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int r = rph + RPH * jj;
+          if (SMALL || r < R) {
+            const float4 p =
+                *reinterpret_cast<const float4*>(SP + r * PS + 4 * c4);
+            float4& a = acc[jj];
+            a.x = fmaf(p.x, v0.x, a.x);
+            a.y = fmaf(p.x, v0.y, a.y);
+            a.z = fmaf(p.x, v0.z, a.z);
+            a.w = fmaf(p.x, v0.w, a.w);
+            a.x = fmaf(p.y, v1.x, a.x);
+            a.y = fmaf(p.y, v1.y, a.y);
+            a.z = fmaf(p.y, v1.z, a.z);
+            a.w = fmaf(p.y, v1.w, a.w);
+            a.x = fmaf(p.z, v2.x, a.x);
+            a.y = fmaf(p.z, v2.y, a.y);
+            a.z = fmaf(p.z, v2.z, a.z);
+            a.w = fmaf(p.z, v2.w, a.w);
+            a.x = fmaf(p.w, v3.x, a.x);
+            a.y = fmaf(p.w, v3.y, a.y);
+            a.z = fmaf(p.w, v3.z, a.z);
+            a.w = fmaf(p.w, v3.w, a.w);
+          }
+        }
+      }
+    }
+    __syncthreads();                       // stage st and SP are free again
+  }
+  __syncthreads();                         // (m, l) of a block with no tile
+
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+    const int r = rph + RPH * jj;
+    if (r >= R) continue;
+    const float4 a = acc[jj];
+    if (nsplit == 1) {
+      const float den = fmaxf(Ls[r], 1e-30f);
+      *reinterpret_cast<float4*>(
+          o + b * osb + (long long)(hk * group + r % group) * osh +
+          (long long)(r / group) * oss + 4 * d4) =
+          make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+    } else {
+      float* pp = part + ((long long)(blockIdx.x * nsplit + split) * R + r) *
+                             (D + 2);
+      pp[4 * d4 + 0] = a.x;
+      pp[4 * d4 + 1] = a.y;
+      pp[4 * d4 + 2] = a.z;
+      pp[4 * d4 + 3] = a.w;
+      if (d4 == 0) {
+        pp[D] = Ms[r];
+        pp[D + 1] = Ls[r];
+      }
+    }
+  }
+}
+
 template <typename OutT, int D>
 int launch(const void* q, long long qsb, long long qsh, long long qss,
            const void* k, long long ksb, long long ksh, long long kss,
@@ -355,6 +597,60 @@ int launch(const void* q, long long qsb, long long qsh, long long qss,
   if (splits > 1)
     flash_decode_merge_kernel<OutT, D><<<B * Hkv, THREADS, 0, stream>>>(
         (const float*)part, (OutT*)o, osb, osh, oss, Hkv, group, Sq, splits);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool SMALL>
+int launch_f32_rows(const float* q, long long qsb, long long qsh,
+                    long long qss, const float* k, long long ksb,
+                    long long ksh, long long kss, const float* v,
+                    long long vsb, long long vsh, long long vss, float* o,
+                    long long osb, long long osh, long long oss, float* part,
+                    int B, int Hkv, int group, int Sq, int kv_len, int offset,
+                    int causal, int splits, int tiles_per_split,
+                    cudaStream_t stream) {
+  // K and V rings, Q and the score tile of R rows, three row statistics
+  const auto bytes = [](int rows) {
+    return (4 * BK * (D + 4) + rows * (D + PS) + 3 * MAX_ROWS) *
+           (int)sizeof(float);
+  };
+  auto kernel = flash_decode_f32_kernel<D, SMALL>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes(SMALL ? SMALL_ROWS : MAX_ROWS));
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const float scale = (float)(1.0 / sqrt((double)D));
+  kernel<<<dim3(B * Hkv, splits), THREADS, bytes(Sq * group), stream>>>(
+      q, qsb, qsh, qss, k, ksb, ksh, kss, v, vsb, vsh, vss, o, osb, osh, oss,
+      part, Hkv, group, Sq, kv_len, offset, causal, scale, tiles_per_split);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, long long qsb, long long qsh, long long qss,
+               const void* k, long long ksb, long long ksh, long long kss,
+               const void* v, long long vsb, long long vsh, long long vss,
+               void* o, long long osb, long long osh, long long oss,
+               void* part, int B, int H, int Hkv, int Sq, int kv_len,
+               int offset, int causal, int splits, int tiles_per_split,
+               cudaStream_t stream) {
+  const int group = H / Hkv;
+#define FD_ROWS_ARGS (const float*)q, qsb, qsh, qss, (const float*)k, ksb,  \
+                     ksh, kss, (const float*)v, vsb, vsh, vss, (float*)o,   \
+                     osb, osh, oss, (float*)part, B, Hkv, group, Sq,        \
+                     kv_len, offset, causal, splits, tiles_per_split, stream
+  const int err = Sq * group <= SMALL_ROWS
+                      ? launch_f32_rows<D, true>(FD_ROWS_ARGS)
+                      : launch_f32_rows<D, false>(FD_ROWS_ARGS);
+#undef FD_ROWS_ARGS
+  if (err != 0) return err;
+  if (splits > 1)
+    flash_decode_merge_kernel<float, D><<<B * Hkv, THREADS, 0, stream>>>(
+        (const float*)part, (float*)o, osb, osh, oss, Hkv, group, Sq, splits);
   return (int)cudaGetLastError();
 }
 
@@ -391,6 +687,34 @@ extern "C" int flash_decode_launch(
     case 128: return FD_CALL(128);
   }
 #undef FD_CALL
+#undef FD_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// float32 inputs and output (out_code 0), the arguments of
+// flash_decode_launch; every row 16-byte aligned (the wrapper checks it).
+extern "C" int flash_decode_f32_launch(
+    const void* q, long long qsb, long long qsh, long long qss,
+    const void* k, long long ksb, long long ksh, long long kss,
+    const void* v, long long vsb, long long vsh, long long vss,
+    void* o, long long osb, long long osh, long long oss, void* part, int B,
+    int H, int Hkv, int Sq, int Skv, int D, int kv_len, int offset,
+    int causal, int splits, int tiles_per_split, int out_code,
+    void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      Sq * (H / Hkv) > MAX_ROWS || kv_len < 1 || kv_len > Skv ||
+      splits < 1 || tiles_per_split < 1 || (splits > 1 && part == nullptr) ||
+      out_code != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FD_ARGS q, qsb, qsh, qss, k, ksb, ksh, kss, v, vsb, vsh, vss, o, osb, \
+                osh, oss, part, B, H, Hkv, Sq, kv_len, offset, causal,       \
+                splits, tiles_per_split, st
+  switch (D) {
+    case 16: return launch_f32<16>(FD_ARGS);
+    case 64: return launch_f32<64>(FD_ARGS);
+    case 128: return launch_f32<128>(FD_ARGS);
+  }
 #undef FD_ARGS
   return (int)cudaErrorInvalidValue;
 }

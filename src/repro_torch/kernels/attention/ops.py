@@ -1,10 +1,10 @@
 """Dispatch of flash attention (K10).
 
-CPU tensors take the plain version; CUDA tensors launch one of K10's three
-kernels (``flash.variant``: float32 on the CUDA cores, bf16 decode, bf16
-prefill on the tensor cores), and a kernel that cannot launch raises --
-there is no fallback.  Unlike the JAX wrapper nothing is padded: the
-kernels mask ragged Sq/Skv themselves.
+CPU tensors take the plain version; CUDA tensors launch one of K10's four
+kernels (``flash.variant``: float32 decode and prefill on the CUDA cores,
+bf16 decode and prefill on the tensor cores), and a kernel that cannot
+launch raises -- there is no fallback.  Unlike the JAX wrapper nothing is
+padded: the kernels mask ragged Sq/Skv themselves.
 """
 from __future__ import annotations
 

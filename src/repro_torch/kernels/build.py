@@ -9,20 +9,21 @@ an edited source is rebuilt and a stale library is never loaded.
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into fused
 multiply-adds: the neuron core is float64 and each kernel must keep the
 float operation order of its plain PyTorch version.  Flash attention (K10)
-is held to a tolerance instead and has three kernels, one source each,
-chosen by ``kernels/attention/flash.py::variant``: float32 inputs run
-``flash_attention.cu`` on the CUDA cores (with its fused multiply-adds
-written out as ``fmaf``); bfloat16 inputs run ``flash_decode.cu``
-(``mma.sync``, one block per GQA group) where Sq * group is at most 64 and
-``flash_prefill.cu`` (``wgmma``) above it.  Both bf16 kernels fill their
-shared-memory tiles with ``cp.async``; none uses TMA, so no source links
-the driver API.
+is held to a tolerance instead and has four kernels in three sources,
+chosen by ``kernels/attention/flash.py::variant`` from the dtype and
+whether Sq * group is at most 64 (decode) or above it (prefill): float32
+inputs run on the CUDA cores (fused multiply-adds written out as
+``fmaf``), ``flash_decode.cu``'s float32 kernel (one block per GQA group)
+and ``flash_attention.cu`` (register-tiled); bfloat16 inputs run
+``flash_decode.cu`` (``mma.sync``, one block per GQA group) and
+``flash_prefill.cu`` (``wgmma``).  All four fill their shared-memory tiles
+with ``cp.async``; none uses TMA, so no source links the driver API.
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises when
 it is not 0.  Each wrapper adds one to its launch counter (``count``)
 where it launches its kernel, and nowhere else.  K10 counts each call under
 ``flash_attention`` and under the kernel that ran
-(``flash_attention_{f32,prefill,decode}``).
+(``flash_attention_{f32_decode,f32_prefill,decode,prefill}``).
 """
 from __future__ import annotations
 
@@ -48,8 +49,9 @@ _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
             "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
             "compact_gather": 0, "segment_rank": 0, "compact_rows": 0,
-            "flash_attention": 0, "flash_attention_f32": 0,
-            "flash_attention_prefill": 0, "flash_attention_decode": 0}
+            "flash_attention": 0, "flash_attention_f32_decode": 0,
+            "flash_attention_f32_prefill": 0, "flash_attention_prefill": 0,
+            "flash_attention_decode": 0}
 
 
 def nvcc_path() -> str:

@@ -76,7 +76,8 @@ def test_kernels_bitwise_equal_to_plain(dev, name):
                                 "horizon_score": 1, "compact_ids": 0,
                                 "compact_gather": 0, "segment_rank": 0,
                                 "compact_rows": 0, "flash_attention": 0,
-                                "flash_attention_f32": 0,
+                                "flash_attention_f32_decode": 0,
+                                "flash_attention_f32_prefill": 0,
                                 "flash_attention_prefill": 0,
                                 "flash_attention_decode": 0}
 
@@ -669,35 +670,42 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
         _k10_check(q, k, v, causal, offset, kv_len, out_dtype, got)
     calls = 1 if dtype == torch.float32 else 2
     kind = flash.variant(dtype, Sq, H // Hkv, D)
-    assert kind == ("f32" if dtype == torch.float32 else
-                    "decode" if Sq * H // Hkv <= 64 else "prefill")
+    rows = "decode" if Sq * H // Hkv <= 64 else "prefill"
+    assert kind == (f"f32_{rows}" if dtype == torch.float32 else rows)
     counts = build.launches()
     assert counts["flash_attention"] == calls
-    assert {n: counts[f"flash_attention_{n}"] for n in
-            ("f32", "prefill", "decode")} == {
-        n: calls if n == kind else 0 for n in ("f32", "prefill", "decode")}
+    kinds = ("f32_decode", "f32_prefill", "prefill", "decode")
+    assert {n: counts[f"flash_attention_{n}"] for n in kinds} == {
+        n: calls if n == kind else 0 for n in kinds}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_len", [1, 255, 700, 4096])
 @pytest.mark.parametrize("splits", [1, 2, 7, 64])
-def test_flash_decode_splits_agree(dev, kv_len, splits):
-    """The decode kernel with its kv tiles split over 1-64 blocks (the
-    second pass merging them) against the plain version."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_splits_agree(dev, kv_len, splits, dtype):
+    """The decode kernels (bf16 and float32) with their kv tiles split over
+    1-64 blocks (the second pass merging them) against the plain
+    version."""
     from repro_torch.kernels.attention import flash
-    q, k, v = _k10_case(dev, torch.bfloat16, 2, 8, 2, 1, 4096, 64, seed=3)
-    for out_dtype in (torch.bfloat16, torch.float32):
+    q, k, v = _k10_case(dev, dtype, 2, 8, 2, 1, 4096, 64, seed=3)
+    build.reset_launches()
+    for out_dtype in dict.fromkeys((dtype, torch.float32)):
         got = flash.flash_attention_cuda(q, k, v, offset=kv_len - 1,
                                          kv_len=kv_len, out_dtype=out_dtype,
                                          splits=splits)
         torch.cuda.synchronize()
         _k10_check(q, k, v, True, kv_len - 1, kv_len, out_dtype, got)
+    kind = "f32_decode" if dtype == torch.float32 else "decode"
+    assert build.launches()[f"flash_attention_{kind}"] == \
+        build.launches()["flash_attention"] > 0
 
 
 @pytest.mark.cuda
 def test_flash_attention_refused_launch_raises(dev):
     """A launch the kernels refuse returns its CUDA error and the wrapper
-    raises; a misaligned bf16 view is refused before any launch."""
+    raises; a misaligned bf16 or float32 view is refused before any
+    launch."""
     import ctypes
 
     from repro_torch.kernels.attention import flash
@@ -707,19 +715,35 @@ def test_flash_attention_refused_launch_raises(dev):
     for x in (q, k, v, q):
         args += [build.ptr(x), x.stride(0), x.stride(1), x.stride(2)]
     # head size 32 has no instantiation
-    err = flash._lib("prefill").flash_prefill_launch(
+    err = flash._launcher("prefill")(
         *args, 1, 2, 1, 80, 80, 32, 80, 0, 1, 0, stream)
     with pytest.raises(RuntimeError, match="flash_attention_prefill"):
         build.check(err, "flash_attention_prefill")
     # 66 query rows are more than the decode kernel takes
-    err = flash._lib("decode").flash_decode_launch(
+    err = flash._launcher("decode")(
         *args, ctypes.c_void_p(None), 1, 66, 1, 1, 80, 64, 80, 79, 1, 1, 2, 0,
         stream)
+    assert err != 0
+    err = flash._launcher("f32_decode")(
+        *args, ctypes.c_void_p(None), 1, 66, 1, 1, 80, 64, 80, 79, 1, 1, 2, 0,
+        stream)
+    assert err != 0
+    err = flash._launcher("f32_prefill")(
+        *args, 1, 2, 1, 80, 80, 32, 80, 0, 1, stream)
     assert err != 0
     wide = torch.zeros((1, 80, 2, 72), dtype=torch.bfloat16, device=dev)
     build.reset_launches()
     with pytest.raises(ValueError, match="16-byte"):
         flash.flash_attention_cuda(wide[..., 1:65].transpose(1, 2), k, v)
+    # float32 views: a row 4 bytes off alignment, and rows 66 floats apart,
+    # at a decode step (f32_decode) and at a prefill (f32_prefill)
+    _, k32, v32 = _k10_case(dev, torch.float32, 1, 2, 1, 80, 80, 64)
+    for wide in (torch.zeros((1, 80, 2, 72), device=dev)[..., 1:65],
+                 torch.zeros((1, 80, 2, 66), device=dev)[..., :64]):
+        for Sq in (1, 80):
+            with pytest.raises(ValueError, match="16-byte"):
+                flash.flash_attention_cuda(
+                    wide[:, :Sq].transpose(1, 2), k32, v32)
     assert build.launches()["flash_attention"] == 0
 
 

@@ -105,6 +105,35 @@ def test_k10_bf16_kernels_use_tensor_cores_and_async_copies(name, product):
     assert "__nv_bfloat16" in text and "flash_attention_ref" not in text
 
 
+def _f32_kernel_sources():
+    """The float32 K10 kernels' code: all of ``flash_attention.cu``, and
+    ``flash_decode.cu``'s float32 kernel with its launcher plus the
+    file's copy helpers (the bf16 kernel beside it uses mma.sync)."""
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    decode = (csrc / "flash_decode.cu").read_text()
+    start = decode.index("flash_decode_f32_kernel(")
+    body = decode[start:decode.index("}  // namespace", start)]
+    helpers = decode[decode.index("__device__ __forceinline__ void "
+                                  "cp_async16"):
+                     decode.index("__device__ __forceinline__ void mma16816")]
+    return {"f32_prefill": (csrc / "flash_attention.cu").read_text(),
+            "f32_decode": helpers + body}
+
+
+@pytest.mark.parametrize("kind", ["f32_prefill", "f32_decode"])
+def test_k10_f32_kernels_use_cuda_cores_and_async_copies(kind):
+    """Both float32 kernels fill their tiles with 16-byte cp.async copies
+    and multiply with explicit fmaf on the CUDA cores: no tensor-core
+    product (mma, wgmma) and no TF32 conversion, which would miss the
+    float32 tolerance."""
+    text = _f32_kernel_sources()[kind]
+    assert "cp.async.cg.shared.global" in text and "fmaf(" in text
+    assert "load_tile<D>(" in text and "expf(" in text
+    assert "const float* __restrict__ q" in text
+    for word in ("mma", "wgmma", "tf32", "cvt.rna"):
+        assert word not in text, f"{kind} mentions {word}"
+
+
 HOST_NUMPY = {"morphology.py", "topology.py", "network.py", "detmath.py"}
 CORE_FILES = [p for p in sorted((ROOT / "src" / "repro_torch" / "core")
                                 .glob("*.py")) if p.name not in HOST_NUMPY] \
