@@ -95,7 +95,26 @@ Phases, each reported on its own lines:
      where its top two logits lie within it; the float32 kernels timed at
      the shapes these runs called them with most, at the median kv length
      of those calls (their ``kernels`` entries);
- 18. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
+ 18. the plastic cell under the Schur preconditioner at full width:
+     ``make_fap_vardt_runner`` on the branched cell with
+     ``with_plasticity=True`` (n_state 56) and ``BDFOptions(
+     precond="schur")``, phase 3's network, currents, horizon and t_end:
+     it reaches t_end, fails nothing, drops nothing, spikes, keeps every
+     rho in [0, 1] and launches K1, K2, K4 and K5; rounds, steps, nni,
+     nncf, nsetups and wall beside phase 3's;
+ 19. carefully-speculative 2c at full width: ``make_spec_runner`` on phase
+     3's cell, network, currents and t_end with ``fanout="compact"``
+     (phase 4's spike cap) and ``queue="wheel"``: nothing failed or
+     dropped, hits + backsteps > 0, wasted steps >= backsteps, K1, K2, K4,
+     K7 and K8 launched, total spikes within max(2, 10 %) of phase 3's;
+     its ``SpecStats``, rounds, validated steps and wall;
+ 20. phases 18 and 19's paths at N=64, 10 ms, card against CPU: 2c on the
+     plastic cell under schur with ``jac_policy`` "reuse" (K1/K2) and
+     "iteration" (K3), and the speculative runner with dense and with
+     compact fan-out: spike trains, steps, counters (solver counters,
+     ``SpecStats``) and final states bitwise equal; on the card the
+     speculative dense fan-out equals the compact one event for event;
+ 21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path (device busy share,
      busiest kernels).
@@ -174,6 +193,8 @@ DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
 BASELINE_PATH = ("hines_solve",)
+SPEC_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
+             "compact_gather", "segment_rank")
 ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
               spike_cap="auto", queue="wheel")
 RANKS = 4                      # SPMD ranks, all on cuda:0 (one card)
@@ -1726,6 +1747,213 @@ def phase_lm_card_vs_cpu(dev, requests=6, slots=3, max_new=8, cache_len=48,
     return out
 
 
+# --------------------------------------------------------------- phase 18 --
+def _plastic_run(dev, n, t_end, **opts):
+    """Phase 3's runner (network, currents, fused horizon) on the plastic
+    branched cell under ``BDFOptions(precond="schur", **opts)``: returns
+    the model and the nullary runner."""
+    from repro_torch.core.bdf import BDFOptions
+    from repro_torch.core.cell import CellModel
+    from repro_torch.core.exec_fap import make_fap_vardt_runner
+    from repro_torch.core.morphology import branched_tree
+    from repro_torch.core.network import make_network
+    model = CellModel(branched_tree(depth=2, seg_per_branch=2),
+                      with_plasticity=True, device=dev)
+    net = make_network(n, k_in=K_IN, seed=NET_SEED)
+    return model, make_fap_vardt_runner(
+        model, net, regime_currents(n), t_end,
+        opts=BDFOptions(precond="schur", **opts), horizon_impl="fused",
+        device=dev)
+
+
+def _per_round(stats):
+    return stats["wall_s"] / max(stats["rounds"], 1) * 1e3
+
+
+def _beside(name, got, ref):
+    return f"{name} {got} vs {ref}"
+
+
+def phase_plastic_schur(dev, t_end, main, smi):
+    """The plastic cell under the Schur preconditioner at full width, on
+    phase 3's network and currents, counts zeroed just before."""
+    from repro_torch.kernels import build
+    model, run = _plastic_run(dev, N_MAIN, t_end)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, rounds = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    spikes = _gate_run("plastic-schur", res)
+    solver = {k: int(v) for k, v in res.solver.items()}
+    rho = res.y_final[:, -1]
+    rho_lo, rho_hi = float(rho.min()), float(rho.max())
+    width = model.n_factors("schur")
+    fac_mb = N_MAIN * width * 8 / 1e6
+    out = dict(t_end=t_end, rounds=rounds, wall_s=wall, spikes=spikes,
+               n_steps=int(res.n_steps), n_events=int(res.n_events),
+               solver=solver, rho=[rho_lo, rho_hi], factor_mb=fac_mb,
+               launches=launches)
+    say("plastic-schur", f"N={N_MAIN} C=13 plastic (n_state "
+        f"{model.n_state}) k_in={K_IN} t_end={t_end} ms precond=schur "
+        f"horizon_impl=fused: rounds {rounds}, n_steps {int(res.n_steps)}, "
+        f"n_events {int(res.n_events)}, spikes {spikes}, dropped "
+        f"{int(res.dropped)}, failed {bool(res.failed)}; rho in "
+        f"[{rho_lo:.6f}, {rho_hi:.6f}]; factor rows {width} float64 a "
+        f"neuron, {fac_mb:.1f} MB")
+    say("plastic-schur", f"solver {json.dumps(solver)}")
+    ms = main["solver"]
+    say("plastic-schur", "beside phase 3 (the same network, currents and "
+        "t_end; no plasticity, precond=neuron): " + ", ".join(
+            [_beside("rounds", rounds, main["rounds"]),
+             _beside("n_steps", int(res.n_steps), main["n_steps"])]
+            + [_beside(k, solver[k], ms[k])
+               for k in ("nni", "nncf", "nsetups", "netf")]
+            + [_beside("spikes", spikes, main["spikes"]),
+               f"wall {wall:.2f} vs {main['wall_s']:.2f} s",
+               f"{_per_round(out):.1f} vs {_per_round(main):.1f} ms per "
+               f"round on {smi}"]) + f"; launches {json.dumps(launches)}")
+    if rounds >= 1_000_000:
+        raise AssertionError("plastic-schur: did not reach t_end")
+    if not (0.0 <= rho_lo and rho_hi <= 1.0) \
+            or not bool(torch.isfinite(res.y_final).all()):
+        raise AssertionError(f"plastic-schur: rho in [{rho_lo}, {rho_hi}] "
+                             f"or a non-finite state")
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"plastic-schur path never launched {missing}")
+    return out
+
+
+# --------------------------------------------------------------- phase 19 --
+def _spec_run(dev, n, t_end, **knobs):
+    """``make_spec_runner`` on phase 3's cell, network and currents with
+    the wheel sized from the network (``WheelSpec.auto``)."""
+    from repro_torch.core.exec_speculative import make_spec_runner
+    from repro_torch.sched import WheelSpec
+    model, net = _baseline_model_net(dev, n)
+    return make_spec_runner(model, net, regime_currents(n), t_end,
+                            queue="wheel", wheel=WheelSpec.auto(net),
+                            device=dev, **knobs)()
+
+
+def phase_speculative(dev, t_end, main, spike_cap, smi):
+    """Carefully-speculative 2c at full width with compact fan-out and the
+    wheel, counts zeroed just before; spikes held to phase 3's."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, stats, rounds = _spec_run(dev, N_MAIN, t_end, fanout="compact",
+                                   spike_cap=spike_cap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    spikes = _gate_run("speculative", res)
+    st = {k: int(v) for k, v in stats._asdict().items()}
+    counts = res.rec.count.cpu().numpy()
+    differ = int((counts != main["counts"]).sum())
+    solver = {k: int(v) for k, v in res.solver.items()}
+    out = dict(t_end=t_end, rounds=rounds, wall_s=wall, spikes=spikes,
+               n_steps=int(res.n_steps), n_events=int(res.n_events),
+               spec=st, spike_count_differs=differ, spike_cap=spike_cap,
+               solver=solver, launches=launches)
+    say("speculative", f"N={N_MAIN} C=13 k_in={K_IN} t_end={t_end} ms "
+        f"horizon_cap 2, spec_window 2, fanout=compact spike_cap="
+        f"{spike_cap} (phase 4's), queue=wheel: rounds {rounds}, validated "
+        f"n_steps {int(res.n_steps)}, n_events {int(res.n_events)}, spikes "
+        f"{spikes}, dropped {int(res.dropped)}, failed {bool(res.failed)}; "
+        f"SpecStats {json.dumps(st)}")
+    say("speculative", f"solver (validated lanes) {json.dumps(solver)}")
+    say("speculative", f"beside phase 3 (2c, dense, the same cell, network,"
+        f" currents and t_end): spikes {spikes} vs {main['spikes']} "
+        f"({differ} neurons differ in spike count), rounds {rounds} vs "
+        f"{main['rounds']}, validated n_steps {int(res.n_steps)} vs "
+        f"{main['n_steps']}, wall {wall:.2f} vs {main['wall_s']:.2f} s, "
+        f"{_per_round(out):.1f} vs {_per_round(main):.1f} ms per round on "
+        f"{smi}; launches {json.dumps(launches)}")
+    if st["hits"] + st["backsteps"] <= 0 \
+            or st["wasted_steps"] < st["backsteps"]:
+        raise AssertionError(f"speculative: SpecStats {st}")
+    if abs(spikes - main["spikes"]) > max(2, 0.1 * main["spikes"]):
+        raise AssertionError(f"speculative: {spikes} spikes against phase "
+                             f"3's {main['spikes']}")
+    missing = [k for k in SPEC_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"speculative path never launched {missing}")
+    return out
+
+
+# --------------------------------------------------------------- phase 20 --
+def phase_new_paths_card_vs_cpu(dev, smi, n=64, t_end=10.0, spike_cap=4):
+    """Phases 18 and 19's paths at N=64, card against CPU bitwise; on the
+    card the speculative dense fan-out equals the compact one."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    out = {}
+    for policy, kernels in (("reuse", ("hines_factor",
+                                       "hines_solve_factored")),
+                            ("iteration", ("hines_solve",))):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            build.reset_launches()
+            res.append(_plastic_run(d, n, t_end, jac_policy=policy)[1]())
+            if d == dev:
+                launches = build.launches()
+        (g, rg), (c, rc) = res
+        same = _same_run(g, c) and rg == rc and all(
+            int(g.solver[k]) == int(c.solver[k]) for k in g.solver)
+        say("new-card-vs-cpu", f"2c plastic precond=schur jac_policy="
+            f"{policy} N={n} C=13 t_end={t_end} ms: rounds card {rg} cpu "
+            f"{rc}; spikes {int(g.rec.count.sum())}; n_steps card "
+            f"{int(g.n_steps)} cpu {int(c.n_steps)}; spike trains, steps, "
+            f"solver counters and final states bitwise equal: {same} "
+            f"({time.perf_counter() - t0:.1f} s on {smi})")
+        if not same:
+            raise AssertionError(f"2c plastic schur {policy} differs card "
+                                 f"vs CPU")
+        _gate_run(f"2c plastic schur {policy} N={n}", c)
+        if any(launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"2c plastic schur {policy} never "
+                                 f"launched {kernels}")
+        out[f"plastic_schur_{policy}"] = dict(rounds=rg,
+                                              n_steps=int(g.n_steps))
+    card = {}
+    for fanout in ("dense", "compact"):
+        res = [_spec_run(d, n, t_end, fanout=fanout, spike_cap=spike_cap)
+               for d in (dev, torch.device("cpu"))]
+        (g, sg, rg), (c, sc, rc) = res
+        same = _same_run(g, c) and rg == rc and all(
+            int(a) == int(b) for a, b in zip(sg, sc))
+        say("new-card-vs-cpu", f"speculative fanout={fanout} spike_cap="
+            f"{spike_cap} queue=wheel N={n} t_end={t_end} ms: rounds card "
+            f"{rg} cpu {rc}; spikes {int(g.rec.count.sum())}; validated "
+            f"n_steps card {int(g.n_steps)} cpu {int(c.n_steps)}; SpecStats "
+            f"card {[int(x) for x in sg]} cpu {[int(x) for x in sc]}; spike "
+            f"trains, steps, SpecStats and final states bitwise equal: "
+            f"{same} ({time.perf_counter() - t0:.1f} s on {smi})")
+        if not same:
+            raise AssertionError(f"speculative {fanout} differs card vs "
+                                 f"CPU")
+        _gate_run(f"speculative {fanout} N={n}", c)
+        card[fanout] = (g, sg, rg)
+        out[f"speculative_{fanout}"] = dict(rounds=rg,
+                                            n_steps=int(g.n_steps))
+    (a, sa, ra), (b, sb, rb) = card["dense"], card["compact"]
+    same = _same_run(a, b) and ra == rb and all(
+        int(x) == int(y) for x, y in zip(sa, sb))
+    say("new-card-vs-cpu", f"card, speculative dense vs compact fan-out: "
+        f"rounds {ra} vs {rb}, identical event for event: {same} "
+        f"({time.perf_counter() - t0:.1f} s on {smi})")
+    if not same:
+        raise AssertionError("speculative compact fan-out differs from "
+                             "dense")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -1802,7 +2030,8 @@ def phase_profile_serve(dev, n_steps, t_pos=128):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--t-end", type=float, default=12.0,
-                    help="simulated ms of the full-width phases 3, 4 and 9")
+                    help="simulated ms of the full-width phases 3, 4, 9, "
+                    "18 and 19")
     ap.add_argument("--out", default=None, help="also write results as JSON")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS",
                     help="also trace this many full-width rounds")
@@ -1839,6 +2068,10 @@ def main(argv=None):
     launches["flash_attention_f32_prefill"] = f32["prefill_launches"]
     rows["flash_attention_f32_decode"] = f32.pop("row")
     rows["flash_attention_f32_prefill"] = f32.pop("prefill_row")
+    plastic = phase_plastic_schur(dev, args.t_end, main_stats, smi)
+    spec = phase_speculative(dev, args.t_end, main_stats, act["spike_cap"],
+                             smi)
+    new_vs_cpu = phase_new_paths_card_vs_cpu(dev, smi)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -1864,7 +2097,9 @@ def main(argv=None):
              "baseline_2a": base, "baseline_2a_launches": base_launches,
              "other_baselines": others, "spmd": spmd,
              "attention": attn_rows, "serve": lm_stats,
-             "lm_card_vs_cpu": lm_vs_cpu}, indent=1))
+             "lm_card_vs_cpu": lm_vs_cpu, "plastic_schur": plastic,
+             "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu},
+            indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

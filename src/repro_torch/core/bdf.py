@@ -5,8 +5,10 @@ CVODE in Nordsieck form with a modified-Newton corrector on the
 Hines-structured Newton matrix, the WRMS local error test, order selection,
 tstop semantics, IVP resets on synaptic events, the CVODE Jacobian-freshness
 policy (``jac_policy="reuse"``) or a fresh assembly and fused Hines solve
-on every Newton iteration (``jac_policy="iteration"``), and the NDF error
-constants (``method="ndf"``).
+on every Newton iteration (``jac_policy="iteration"``), the NDF error
+constants (``method="ndf"``) and either Newton matrix of the cell
+(``precond="neuron"`` or ``"schur"``, whose factor rows are 6C + 2
+wider).
 
 The JAX module is written per neuron and vmapped, so every ``lax.cond`` and
 ``while_loop`` of ``_step_impl`` runs per lane.  Here every state field has
@@ -66,8 +68,6 @@ for _k in range(1, QMAX + 1):
     _NDF_RATIO[_k] = abs(1.0 + (_k + 1) * _NDF_KAPPA[_k] * _gamk)
 del _k, _gamk
 
-_LATER = "comes in a later slice of the port (ROADMAP queue 1, item 4)"
-
 
 class BDFState(NamedTuple):
     t: torch.Tensor            # f64[L]
@@ -97,7 +97,8 @@ class BDFOptions(NamedTuple):
     rtol: float = 0.0
     hmax: float = 1.0e9
     h0: float = -1.0          # <=0: use heuristic
-    precond: str = "neuron"   # "neuron" (paper default); "schur" not ported
+    precond: str = "neuron"   # "neuron" (paper default) | "schur" (exact
+    #                           HH-block elimination, 6C + 2 more factors)
     method: str = "bdf"       # "bdf" | "ndf" (kappa-modified error constants)
     jac_policy: str = "reuse" # "reuse" | "iteration" (fused rebuild per
     #                           Newton iteration, nsetups == nni)
@@ -144,8 +145,8 @@ def _check_opts(opts: BDFOptions):
         raise ValueError(f"unknown method {opts.method!r}")
     if opts.jac_policy not in ("reuse", "iteration"):
         raise ValueError(f"unknown jac_policy {opts.jac_policy!r}")
-    if opts.precond != "neuron":
-        raise NotImplementedError(f"precond={opts.precond!r} {_LATER}")
+    if opts.precond not in ("neuron", "schur"):
+        raise ValueError(f"unknown precond {opts.precond!r}")
 
 
 def reinit(model, t, y, iinj, opts: BDFOptions, counters=None,

@@ -6,8 +6,11 @@ Counterpart of ``repro.core.fixed_step``:
                  the linear gating ODE at frozen V), voltage by an
                  implicit linear Hines solve -- NEURON's default;
   euler          (1b) gates by explicit Euler, voltage implicit;
-  derivimplicit  (2a) gates by backward Euler (per-mechanism implicit),
-                 voltage implicit -- the fixed-step reference for 2c.
+  derivimplicit  (2a) gates by backward Euler and the plasticity pair by
+                 three Newton iterations on its 2x2 implicit system
+                 (per-mechanism implicit), voltage implicit -- the
+                 fixed-step reference for 2c.  Under cnexp and euler the
+                 pair steps by explicit Euler.
 
 All three share the staggered voltage update (paper §2.2): channel states
 at t + dt/2 make the voltage system linear, one fused Hines solve per
@@ -84,6 +87,40 @@ def _gates_derivimplicit(v, m, h, n, dt):
     return m2, h2, n2
 
 
+def _solve2(a, b, c, d, r0, r1):
+    """x with [[a, b], [c, d]] x = [r0, r1], elementwise over the lanes:
+    LU with partial pivoting, written out (``torch.linalg.solve`` rounds
+    unlike on the card)."""
+    swap = torch.abs(c) > torch.abs(a)
+    a, c = torch.where(swap, c, a), torch.where(swap, a, c)
+    b, d = torch.where(swap, d, b), torch.where(swap, b, d)
+    r0, r1 = torch.where(swap, r1, r0), torch.where(swap, r0, r1)
+    lo = c / a
+    x1 = (r1 - lo * r0) / (d - lo * b)
+    return (r0 - b * x1) / a, x1
+
+
+def _plasticity_derivimplicit(extra, dt, newton_iters: int = 3):
+    """Per-mechanism implicit Newton on the correlated (ca, rho) pair:
+    g(e) = e - extra - dt * f(e), J = I - dt * df/de."""
+    e = extra
+    for _ in range(newton_iters):
+        ca, rho = e[:, 0], e[:, 1]
+        dca, drho = mech.plasticity_derivs(ca, rho)
+        g0 = e[:, 0] - extra[:, 0] - dt * dca
+        g1 = e[:, 1] - extra[:, 1] - dt * drho
+        j_cc, j_cr, j_rc, j_rr = mech.plasticity_jacobian(ca, rho)
+        x0, x1 = _solve2(1.0 - dt * j_cc, 0.0 - dt * j_cr, 0.0 - dt * j_rc,
+                         1.0 - dt * j_rr, g0, g1)
+        e = e - torch.stack([x0, x1], dim=1)
+    return e
+
+
+def _plasticity_explicit(extra, dt):
+    dca, drho = mech.plasticity_derivs(extra[:, 0], extra[:, 1])
+    return extra + dt * torch.stack([dca, drho], dim=1)
+
+
 GATE_UPDATES = {
     "cnexp": _gates_cnexp,
     "euler": _gates_euler,
@@ -99,20 +136,24 @@ def make_stepper(model: CellModel, method: str = "cnexp",
         raise ValueError(f"unknown fixed-step method {method!r}")
     dev = model.runner_device(device)
     gate_fn = GATE_UPDATES[method]
+    plastic_fn = _plasticity_derivimplicit if method == "derivimplicit" \
+        else _plasticity_explicit
     # a host division, as XLA folds the constant (see the module docstring)
     cap_dt = torch.as_tensor(np.asarray(model.morph.cap, np.float64) / dt,
                              device=dev)
     e_ampa, e_gaba = decay_factors(dt)
 
     def step(Y, iinj=0.0):
-        v, m, h, n, g_ampa, g_gaba, _ = model.split(Y)
+        v, m, h, n, g_ampa, g_gaba, extra = model.split(Y)
         # staggered: states to t+dt/2 using V(t) ...
         m, h, n = gate_fn(v, m, h, n, dt)
         g_ampa = g_ampa * e_ampa
         g_gaba = g_gaba * e_gaba
+        if model.with_plasticity:
+            extra = plastic_fn(extra, dt)
         # ... then V(t) -> V(t+dt) with frozen states
         v = _voltage_update(model, cap_dt, v, m, h, n, g_ampa, g_gaba, iinj)
-        return model.pack(v, m, h, n, g_ampa, g_gaba)
+        return model.pack(v, m, h, n, g_ampa, g_gaba, extra)
 
     return step
 

@@ -40,6 +40,19 @@ def exprel(x):
     return torch.where(small, 1.0 - x * 0.5, out)
 
 
+def exprel_tangent(x, dx):
+    """Tangent of ``exprel`` at x along dx, as JAX's forward mode rounds
+    it: the branch ``1 - x/2`` taken at |x| < 1e-9 has slope -1/2; the
+    other is the quotient rule on x_safe / expm1(x_safe), with
+    expm1' = expm1 + 1 and the denominator's term ``(-g x) * y**-2``."""
+    small = torch.abs(x) < 1e-9
+    x_safe = torch.where(small, 1e-9, x)
+    e = dm.expm1(x_safe)
+    g_e = dx * (e + 1.0)
+    out = dx / e + (-g_e * x_safe) * (1.0 / (e * e))
+    return torch.where(small, -(dx * 0.5), out)
+
+
 # --- HH gating rates (V in mV, rates in 1/ms) ---------------------------------
 class GateRates(NamedTuple):
     a_m: torch.Tensor
@@ -61,6 +74,31 @@ def gate_rates(v) -> GateRates:
                             -(v + 55.0) * (1.0 / 10.0)]))
     return GateRates(1.0 * x[0], 4.0 * e[0], 0.07 * e[1],
                      1.0 / (1.0 + e[2]), 0.1 * x[1], 0.125 * e[3])
+
+
+def gate_rate_slopes(v) -> GateRates:
+    """dV of the six HH rates along ones (the ``jax.jvp`` of the rates
+    that the Schur preconditioner takes): exp' = exp, the quotient rule
+    of ``beta_h``'s ``1 / (1 + e)``, ``exprel_tangent`` for the two
+    exprel terms; each product in JAX's order."""
+    e = dm.exp(torch.stack([-(v + 65.0) * (1.0 / 18.0),
+                            -(v + 65.0) * (1.0 / 20.0),
+                            -(v + 35.0) * (1.0 / 10.0),
+                            -(v + 65.0) * (1.0 / 80.0)]))
+    x = torch.stack([-(v + 40.0) * (1.0 / 10.0), -(v + 55.0) * (1.0 / 10.0)])
+    t = exprel_tangent(x, -1.0 / 10.0)
+    y = 1.0 + e[2]
+    return GateRates(1.0 * t[0], 4.0 * ((-1.0 / 18.0) * e[0]),
+                     0.07 * ((-1.0 / 20.0) * e[1]),
+                     (-((-1.0 / 10.0) * e[2]) * 1.0) * (1.0 / (y * y)),
+                     0.1 * t[1], 0.125 * ((-1.0 / 80.0) * e[3]))
+
+
+def gate_slopes(v, m, h, n):
+    """d(dx/dt)/dV = alpha'(V)(1-x) - beta'(V)x for the three HH gates."""
+    s = gate_rate_slopes(v)
+    return (s.a_m * (1.0 - m) - s.b_m * m, s.a_h * (1.0 - h) - s.b_h * h,
+            s.a_n * (1.0 - n) - s.b_n * n)
 
 
 def alpha_m(v):
@@ -135,6 +173,13 @@ def _sig(x, k=20.0):
     return 1.0 / (1.0 + dm.exp(-k * x))
 
 
+def _sig_slope(x, k=20.0):
+    """sig'(x) = k e / (1 + e)**2, e = exp(-k x), in JAX's jvp order."""
+    e = dm.exp(-k * x)
+    y = 1.0 + e
+    return (-((-k) * e) * 1.0) * (1.0 / (y * y))
+
+
 def plasticity_derivs(ca, rho):
     """Correlated non-linear pair: cubic efficacy ODE driven by calcium."""
     dca = -ca * (1.0 / TAU_CA)
@@ -142,3 +187,18 @@ def plasticity_derivs(ca, rho):
             + GAMMA_P * (1.0 - rho) * _sig(ca - THETA_P)
             - GAMMA_D * rho * _sig(ca - THETA_D)) * (1.0 / TAU_RHO)
     return dca, drho
+
+
+def plasticity_jacobian(ca, rho):
+    """The 2x2 Jacobian of ``plasticity_derivs``: (d dca/d ca, d dca/d rho,
+    d drho/d ca, d drho/d rho), each as JAX's forward mode rounds it
+    (``jax.jacfwd`` in the reference).  d dca/d rho is zero."""
+    inv = 1.0 / TAU_RHO
+    j_cc = torch.full_like(ca, -1.0 / TAU_CA)
+    j_rc = (GAMMA_P * (1.0 - rho) * _sig_slope(ca - THETA_P)
+            - GAMMA_D * rho * _sig_slope(ca - THETA_D)) * inv
+    j_rr = ((-(1.0 - rho) + rho) * (RHO_STAR - rho)
+            + (-rho * (1.0 - rho)) * -1.0
+            + (GAMMA_P * -1.0) * _sig(ca - THETA_P)
+            - (GAMMA_D * 1.0) * _sig(ca - THETA_D)) * inv
+    return j_cc, torch.zeros_like(ca), j_rc, j_rr

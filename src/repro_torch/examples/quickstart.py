@@ -4,8 +4,8 @@ Simulates a single detailed (HH) neuron two ways and prints what the paper's
 Fig. 5/6 show: the variable-order variable-timestep BDF integrator needs
 far fewer steps than fixed-step backward Euler (method 2a) at matched
 accuracy, and synaptic discontinuities (IVP resets) are what it pays for.
-The port's copy of ``examples/quickstart.py``; the cell carries no
-plasticity pair (``with_plasticity`` is not ported yet).
+The port's copy of ``examples/quickstart.py``, on the same branched cell
+with the correlated plasticity pair.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart --device cpu
 """
@@ -28,9 +28,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     model = CellModel(morphology.branched_tree(depth=2, seg_per_branch=2),
-                      device=dev)
+                      with_plasticity=True, device=dev)
     print(f"neuron: {model.C} compartments, {model.n_state} ODE states "
-          f"(HH Na/K/leak + synapses) on {dev}")
+          f"(HH Na/K/leak + synapses + correlated plasticity pair) on {dev}")
     t_end, iinj = args.t, 0.05         # gentle subthreshold drive (quiet regime)
 
     # --- reference fixed-step (paper method 2a) --------------------------

@@ -1,10 +1,12 @@
 """Carry state across from the JAX package, as numpy arrays.
 
-Converts the JAX package's ``Network``, ``CellParams``, ``BDFState``,
-``EventQueue``, ``WheelQueue``, ``SpikeRecord`` and the incremental
-horizon of the compact runner's carry -- handed over as NamedTuples (or
-any object with those fields) of numpy arrays -- into the port's tensors,
-and
+Converts the JAX package's ``Network``, ``CellParams``, ``BDFState``
+(of either cell, under either preconditioner: the flat factor rows keep
+their width, ``n_factors("schur")`` included), ``EventQueue``,
+``WheelQueue``, ``SpikeRecord``, the speculative runner's ``SpecStats``
+and the incremental horizon of the compact runner's carry -- handed over
+as NamedTuples (or any object with those fields) of numpy arrays -- into
+the port's tensors, and
 the port's back into dicts of numpy arrays that rebuild the JAX
 NamedTuples with ``Cls(**d)``.  ``lm_params_from_numpy`` carries an LM's
 parameter tree across.  Nothing here imports the JAX package: the
@@ -22,6 +24,7 @@ import torch
 from repro_torch.core.bdf import BDFState
 from repro_torch.core.cell import CellParams
 from repro_torch.core.events import EventQueue, SpikeRecord
+from repro_torch.core.exec_speculative import SpecStats
 from repro_torch.core.network import Network
 from repro_torch.sched.wheel import WheelQueue
 
@@ -73,7 +76,8 @@ def cell_params_to_numpy(p) -> dict:
 
 
 def bdf_state_from_numpy(st, device) -> BDFState:
-    """A (vmapped) JAX ``BDFState`` of numpy arrays -> the port's state."""
+    """A (vmapped) JAX ``BDFState`` of numpy arrays -> the port's state;
+    ``factors`` keeps its row width (``model.n_factors(precond)``)."""
     f = {k: _tensor(v, device) for k, v in _fields(st, BDFState._fields).items()}
     if f["t"].dim() == 0:                  # one neuron: add the lane axis
         f = {k: v[None] for k, v in f.items()}
@@ -119,6 +123,15 @@ def spike_record_from_numpy(rec, device) -> SpikeRecord:
 
 def spike_record_to_numpy(rec: SpikeRecord) -> dict:
     return {k: _numpy(v) for k, v in rec._asdict().items()}
+
+
+def spec_stats_from_numpy(stats, device) -> SpecStats:
+    f = _fields(stats, SpecStats._fields)
+    return SpecStats(**{k: _tensor(v, device) for k, v in f.items()})
+
+
+def spec_stats_to_numpy(stats: SpecStats) -> dict:
+    return {k: _numpy(v) for k, v in stats._asdict().items()}
 
 
 def lm_params_from_numpy(cfg, params, device) -> dict:

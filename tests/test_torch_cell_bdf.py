@@ -117,16 +117,32 @@ def test_cell_rhs_setup_solve_vs_jax(models, name):
 
 
 def test_unported_options_raise(models):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCell(tmorph.soma_only(), with_plasticity=True, device="cpu")
+    """The options this test once held to ``NotImplementedError`` --
+    ``with_plasticity=True`` and ``precond="schur"`` -- are ported: they
+    construct, ``reinit`` sizes the factor rows as ``n_factors`` says, and
+    only unknown names raise."""
+    tp = TCell(tmorph.soma_only(), with_plasticity=True, device="cpu")
+    assert (tp.n_state, tp.idx_ca) == (8, 6)
     tm = models["soma"][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.newton_setup(_t(_states(1, 2, 0)), _t(np.ones(2)), mode="schur")
     Y = _t(_states(1, 2, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.solve_newton_mat(Y, _t(np.ones(2)), Y, mode="schur")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbdf.reinit(tm, 0.0, Y, 0.1, tbdf.BDFOptions(precond="schur"))
+    for model, y in ((tm, Y), (tp, tp.init_state()[None].repeat(2, 1))):
+        for precond in ("neuron", "schur"):
+            st = tbdf.reinit(model, 0.0, y, 0.1,
+                             tbdf.BDFOptions(precond=precond))
+            width = model.n_state + model.C + (6 * model.C + 2) * (
+                precond == "schur")
+            assert st.factors.shape == (2, width) == \
+                (2, model.n_factors(precond))
+            f = model.newton_setup(y, _t(np.ones(2)), mode=precond)
+            assert f.shape == st.factors.shape
+            x = model.solve_newton_mat(y, _t(np.ones(2)), y, mode=precond)
+            assert bool(x.isfinite().all())
+            assert bool(model.newton_solve(f, y, mode=precond)
+                        .isfinite().all())
+    with pytest.raises(ValueError, match="precond"):
+        tbdf.reinit(tm, 0.0, Y, 0.1, tbdf.BDFOptions(precond="exact"))
+    with pytest.raises(ValueError, match="preconditioner"):
+        tm.newton_setup(Y, _t(np.ones(2)), mode="exact")
     # the iteration policy is ported (the fused solve, kernel K3)
     st = tbdf.reinit(tm, 0.0, Y, 0.1, tbdf.BDFOptions(jac_policy="iteration"))
     assert st.t.shape == (2,)

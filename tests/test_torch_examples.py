@@ -15,9 +15,13 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_quickstart_runs_on_cpu(capsys):
     st = quickstart.main(["--device", "cpu", "--t", "10"])
     out = capsys.readouterr().out
+    assert "13 compartments, 56 ODE states" in out
+    assert "correlated plasticity pair" in out
     assert "fixed dt=25us     :    400 steps" in out
     assert "order reset to q=1" in out
     assert not bool(st.failed[0]) and int(st.nst[0]) < 400
+    rho = float(st.zn[0, 0, -1])
+    assert 0.0 <= rho <= 1.0
 
 
 def test_lab_experiment_runs_on_cpu(capsys):
