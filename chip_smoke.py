@@ -32,12 +32,13 @@ Phases, each reported on its own lines:
      caps 1 and N, MO 1 and 64 on mask views 1-15 bytes off, and K8
      also at max_rank 0, on all-equal keys and on batches of the path's
      pattern at E = 4225, 18000 and 60000 (its chunked staging);
-  6. the dense path at N=64 on the card (kernels) and on the CPU (plain
-     versions): spike trains and final states bitwise equal (the port
-     rounds alike on both, ``repro_torch/core/detmath.py``);
-  7. the active path at N=64 with a binding batch cap and a small spike cap
-     (roll-over and dense fan-out fallback both run): card and CPU bitwise
-     equal; on the card ``batch_cap=0`` equals the dense path exactly;
+  6. the dense path at N=64, 6 ms, on the card (kernels) and on the CPU
+     (plain versions): spike trains and final states bitwise equal (the
+     port rounds alike on both, ``repro_torch/core/detmath.py``);
+  7. the active path at N=64, 6 ms, with a binding batch cap and a small
+     spike cap (roll-over and dense fan-out fallback both run): card and
+     CPU bitwise equal; on the card ``batch_cap=0`` equals the dense path
+     exactly;
   8. the fused Hines solve K3 against its plain version and against
      K2(K1(d), b), bitwise, at N=16384 on the branched cell (C=13) and the
      ball-and-stick cell (C=11), with its timing, its bound and the dense
@@ -52,7 +53,7 @@ Phases, each reported on its own lines:
  11. 2a and 2c-iteration at N=64 on the card and on the CPU: spike trains,
      steps and final states bitwise equal;
  12. the SPMD round (``repro_torch.distributed.run_fap_spmd``) at full
-     width and 20 ms: four ranks share the card over gloo, on phase 3's
+     width and 6 ms: four ranks share the card over gloo, on phase 3's
      cell, network and currents, once with ``transport="sparse"`` and the
      dense knobs and once with the full stack (``sparse_ragged``, compact
      batch and fan-out, wheel queue, incremental horizon): both reach
@@ -103,17 +104,38 @@ Phases, each reported on its own lines:
      rho in [0, 1] and launches K1, K2, K4 and K5; rounds, steps, nni,
      nncf, nsetups and wall beside phase 3's;
  19. carefully-speculative 2c at full width: ``make_spec_runner`` on phase
-     3's cell, network, currents and t_end with ``fanout="compact"``
+     3's cell, network and currents, 6 ms, with ``fanout="compact"``
      (phase 4's spike cap) and ``queue="wheel"``: nothing failed or
      dropped, hits + backsteps > 0, wasted steps >= backsteps, K1, K2, K4,
-     K7 and K8 launched, total spikes within max(2, 10 %) of phase 3's;
-     its ``SpecStats``, rounds, validated steps and wall;
- 20. phases 18 and 19's paths at N=64, 10 ms, card against CPU: 2c on the
+     K7 and K8 launched, total spikes within max(2, 10 %) of phase 3's
+     spikes before 6 ms; its ``SpecStats``, rounds, validated steps and
+     wall;
+ 20. phases 18 and 19's paths at N=64, 5 ms, card against CPU: 2c on the
      plastic cell under schur with ``jac_policy`` "reuse" (K1/K2) and
      "iteration" (K3), and the speculative runner with dense and with
      compact fan-out: spike trains, steps, counters (solver counters,
      ``SpecStats``) and final states bitwise equal; on the card the
      speculative dense fan-out equals the compact one event for event;
+ 22. phase 3's runner at full width with ``checkpoint_every=8``: a
+     ``FaultPlan`` kill at 0.6 of phase 3's rounds raises
+     ``SimulatedFailure`` at that round, and ``resume=True`` reproduces
+     phase 3 bitwise (spike trains, steps, solver and sched counters, the
+     final ``zn[:, 0]``), launching K1, K2, K4 and K5; checkpoint bytes, ms
+     per save and per restore;
+ 23. ``SimService`` at full width: 4 lanes of phase 3's network (65,536
+     neurons a round), 8 tenants of 6 ms with currents in [i_active,
+     i_burst] of the branched cell, QoS class 0 capped at N/4, the fused
+     horizon and tenant 1 poisoned at its round 4: every request
+     completes, at least one quarantine, tenant 1 and tenant 0 bitwise
+     equal to their solo 1-lane services, spikes, K1, K2, K4 and K5
+     launched; rounds, ms per service round beside phase 3's, tenant-ms per
+     wall second, admission waits, peak memory;
+ 24. card against CPU at N=64, bitwise: kill/resume and poison rollback
+     at 5 ms (each also equal to the plain run), and a 3-lane, 5-tenant
+     service of 3 ms with a poisoned tenant; then the SPMD round at
+     N=256, 5 ms on four card ranks (sparse, compact, incremental
+     horizon) killed and resumed on four ranks and on two (the elastic
+     reseed), bitwise the uninterrupted run;
  21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path (device busy share,
@@ -131,6 +153,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -142,6 +165,8 @@ import torch
 PCTS = {"quiet": 0.3143, "slow": 0.3844, "moderate": 0.2702,
         "fast": 0.0310, "burst": 0.0001}
 I_THRESH_BRANCHED = 0.1083984375
+I_ACTIVE_BRANCHED = 0.30332508087158205    # ... and its active and burst
+I_BURST_BRANCHED = 0.33084812164306643     # currents (same file)
 N_MAIN, K_IN, NET_SEED = 16384, 16, 11
 RTOL, ATOL = 1e-12, 1e-14
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -198,7 +223,8 @@ SPEC_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
 ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
               spike_cap="auto", queue="wheel")
 RANKS = 4                      # SPMD ranks, all on cuda:0 (one card)
-SPMD_T_END = 20.0              # simulated ms of the full-width SPMD runs
+SPMD_T_END = 6.0               # simulated ms of the full-width SPMD runs
+SPEC_T_END = 6.0               # ... and of the speculative run (phase 19)
 PARCEL_CAP = 2048              # parcel slots per (source, dest) rank pair
 SPMD_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
              "compact_rows")
@@ -567,7 +593,27 @@ def phase_main(dev, t_end):
                           spikes=spikes, n_steps=int(res.n_steps),
                           n_events=int(res.n_events),
                           n_resets=int(res.n_resets), solver=solver,
-                          counts=res.rec.count.cpu().numpy())
+                          counts=res.rec.count.cpu().numpy(),
+                          ref=_host_result(res))
+
+
+def _host_result(res):
+    """What phase 22 holds bitwise to phase 3: the spike record, the final
+    ``zn[:, 0]`` and every counter, on the host."""
+    return dict(times=res.rec.times.cpu(), count=res.rec.count.cpu(),
+                overflow=int(res.rec.overflow), y=res.y_final.cpu(),
+                counters=[int(res.n_steps), int(res.n_events),
+                          int(res.n_resets), int(res.dropped),
+                          bool(res.failed)]
+                + [int(v) for v in res.solver.values()]
+                + [int(v) for v in (res.sched or ())])
+
+
+def _same_host(a, b):
+    return (torch.equal(a["times"], b["times"])
+            and torch.equal(a["count"], b["count"])
+            and torch.equal(a["y"], b["y"]) and a["overflow"] == b["overflow"]
+            and a["counters"] == b["counters"])
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -786,7 +832,7 @@ def phase_sched_kernels(dev, act):
 
 
 # ---------------------------------------------------------------- phase 6 --
-def phase_card_vs_cpu(dev, n=64, t_end=10.0):
+def phase_card_vs_cpu(dev, n=64, t_end=6.0):
     t0 = time.perf_counter()
     gpu, _ = _run(dev, n, t_end)
     cpu, _ = _run("cpu", n, t_end)
@@ -818,7 +864,7 @@ def _same_run(a, b):
             and int(a.n_events) == int(b.n_events))
 
 
-def phase_active_card_vs_cpu(dev, n=64, t_end=10.0, batch_cap=16,
+def phase_active_card_vs_cpu(dev, n=64, t_end=6.0, batch_cap=16,
                              spike_cap=2):
     """The active path with a binding batch cap (roll-over) and a small
     spike cap (dense fan-out fallback): card == CPU bitwise; on the card
@@ -1841,7 +1887,8 @@ def _spec_run(dev, n, t_end, **knobs):
 
 def phase_speculative(dev, t_end, main, spike_cap, smi):
     """Carefully-speculative 2c at full width with compact fan-out and the
-    wheel, counts zeroed just before; spikes held to phase 3's."""
+    wheel, counts zeroed just before; spikes held to phase 3's before
+    ``t_end``."""
     from repro_torch.kernels import build
     build.reset_launches()
     torch.cuda.synchronize()
@@ -1854,7 +1901,9 @@ def phase_speculative(dev, t_end, main, spike_cap, smi):
     spikes = _gate_run("speculative", res)
     st = {k: int(v) for k, v in stats._asdict().items()}
     counts = res.rec.count.cpu().numpy()
-    differ = int((counts != main["counts"]).sum())
+    main_counts = (main["ref"]["times"] < t_end).sum(dim=1).numpy()
+    main_spikes = int(main_counts.sum())
+    differ = int((counts != main_counts).sum())
     solver = {k: int(v) for k, v in res.solver.items()}
     out = dict(t_end=t_end, rounds=rounds, wall_s=wall, spikes=spikes,
                n_steps=int(res.n_steps), n_events=int(res.n_events),
@@ -1867,19 +1916,21 @@ def phase_speculative(dev, t_end, main, spike_cap, smi):
         f"{spikes}, dropped {int(res.dropped)}, failed {bool(res.failed)}; "
         f"SpecStats {json.dumps(st)}")
     say("speculative", f"solver (validated lanes) {json.dumps(solver)}")
-    say("speculative", f"beside phase 3 (2c, dense, the same cell, network,"
-        f" currents and t_end): spikes {spikes} vs {main['spikes']} "
-        f"({differ} neurons differ in spike count), rounds {rounds} vs "
-        f"{main['rounds']}, validated n_steps {int(res.n_steps)} vs "
-        f"{main['n_steps']}, wall {wall:.2f} vs {main['wall_s']:.2f} s, "
-        f"{_per_round(out):.1f} vs {_per_round(main):.1f} ms per round on "
-        f"{smi}; launches {json.dumps(launches)}")
+    say("speculative", f"beside phase 3 (2c, dense, the same cell, network "
+        f"and currents, {main['t_end']} ms): spikes before {t_end} ms "
+        f"{spikes} vs {main_spikes} ({differ} neurons differ in spike "
+        f"count); rounds {rounds}, validated n_steps {int(res.n_steps)}, "
+        f"wall {wall:.2f} s to {t_end} ms, phase 3 {main['rounds']} rounds,"
+        f" {main['n_steps']} steps, {main['wall_s']:.2f} s to "
+        f"{main['t_end']} ms; {_per_round(out):.1f} vs "
+        f"{_per_round(main):.1f} ms per round on {smi}; launches "
+        f"{json.dumps(launches)}")
     if st["hits"] + st["backsteps"] <= 0 \
             or st["wasted_steps"] < st["backsteps"]:
         raise AssertionError(f"speculative: SpecStats {st}")
-    if abs(spikes - main["spikes"]) > max(2, 0.1 * main["spikes"]):
+    if abs(spikes - main_spikes) > max(2, 0.1 * main_spikes):
         raise AssertionError(f"speculative: {spikes} spikes against phase "
-                             f"3's {main['spikes']}")
+                             f"3's {main_spikes} before {t_end} ms")
     missing = [k for k in SPEC_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"speculative path never launched {missing}")
@@ -1887,7 +1938,7 @@ def phase_speculative(dev, t_end, main, spike_cap, smi):
 
 
 # --------------------------------------------------------------- phase 20 --
-def phase_new_paths_card_vs_cpu(dev, smi, n=64, t_end=10.0, spike_cap=4):
+def phase_new_paths_card_vs_cpu(dev, smi, n=64, t_end=5.0, spike_cap=4):
     """Phases 18 and 19's paths at N=64, card against CPU bitwise; on the
     card the speculative dense fan-out equals the compact one."""
     from repro_torch.kernels import build
@@ -1952,6 +2003,343 @@ def phase_new_paths_card_vs_cpu(dev, smi, n=64, t_end=10.0, spike_cap=4):
                              "dense")
     out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+# --------------------------------------------------------------- phase 22 --
+class _Timed:
+    """Wall time of each call of ``exec_common``'s checkpoint save and
+    restore while in use (``run_checkpointed`` looks both up per call)."""
+
+    def __init__(self):
+        self.saves, self.restores = [], []
+
+    def __enter__(self):
+        from repro_torch.core import exec_common as xc
+        self.real = xc.save_sim_checkpoint, xc.restore_sim_checkpoint
+
+        def timed(fn, into):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        xc.save_sim_checkpoint = timed(self.real[0], self.saves)
+        xc.restore_sim_checkpoint = timed(self.real[1], self.restores)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import exec_common as xc
+        xc.save_sim_checkpoint, xc.restore_sim_checkpoint = self.real
+
+
+def _ms(times):
+    return statistics.mean(times) * 1e3 if times else 0.0
+
+
+def phase_checkpoint(dev, t_end, main, smi, every=8):
+    """Phase 3's runner at full width with ``checkpoint_every=8``: a
+    ``FaultPlan`` kill at 0.6 of phase 3's rounds raises
+    ``SimulatedFailure`` at that round, and ``resume=True`` then reproduces
+    phase 3 bitwise, launching K1, K2, K4 and K5 (counts zeroed just
+    before each run)."""
+    from repro_torch.checkpoint import FaultPlan, SimulatedFailure
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.kernels import build
+    run = _runner(dev, N_MAIN, t_end)
+    kill = int(0.6 * main["rounds"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, _Timed() as tm:
+        build.reset_launches()
+        try:
+            run(checkpoint_every=every, ckpt_dir=d,
+                fault=FaultPlan(fail_at_round=kill))
+            failed_at = None
+        except SimulatedFailure as e:
+            failed_at = e.step
+        kill_wall = time.perf_counter() - t0
+        kill_launches = build.launches()
+        if failed_at != kill:
+            raise AssertionError(f"checkpoint: the kill at round {kill} "
+                                 f"raised at {failed_at}")
+        last = ck.latest_step(d)
+        nbytes = ck.read_manifest(ck.step_path(d, last))["total_bytes"]
+        n_saves = len(tm.saves)
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res, rounds = run(checkpoint_every=every, ckpt_dir=d, resume=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = build.launches()
+    h = res.health
+    same = _same_host(_host_result(res), main["ref"]) \
+        and rounds == main["rounds"]
+    out = dict(every=every, kill=kill, resumed_from=h["resumed_from"],
+               rounds=rounds, checkpoint_bytes=nbytes,
+               save_ms=_ms(tm.saves), restore_ms=_ms(tm.restores),
+               saves=len(tm.saves), kill_wall_s=kill_wall,
+               resume_wall_s=wall, checks=h["checks"], launches=launches,
+               kill_launches=kill_launches)
+    say("checkpoint", f"N={N_MAIN} C=13 t_end={t_end} ms checkpoint_every="
+        f"{every}: SimulatedFailure at round {failed_at} ({kill_wall:.2f} s,"
+        f" {n_saves} saves); resumed from round {h['resumed_from']} to "
+        f"round {rounds} ({wall:.2f} s, {h['checks']} rounds checked, "
+        f"{h['checkpoints_saved']} saves); bitwise equal to phase 3 (spike "
+        f"trains, final zn[:, 0], steps, events, resets, solver and sched "
+        f"counters): {same}")
+    say("checkpoint", f"checkpoint {nbytes} bytes ({nbytes / 2**20:.1f} "
+        f"MiB); save {_ms(tm.saves):.1f} ms (mean of {len(tm.saves)}), "
+        f"restore {_ms(tm.restores):.1f} ms (mean of {len(tm.restores)}); "
+        f"resumed run {wall / max(rounds - h['resumed_from'], 1) * 1e3:.1f}"
+        f" ms per round beside phase 3's {_per_round(main):.1f} on {smi}; "
+        f"launches {json.dumps(launches)}")
+    if not same:
+        raise AssertionError("checkpoint: the resumed run differs from "
+                             "phase 3")
+    if h["resumed_from"] != (kill // every) * every or \
+            h["rollbacks"] or h["nonfinite_rounds"]:
+        raise AssertionError(f"checkpoint: health {h}")
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"checkpoint: the resumed run never launched "
+                             f"{missing}")
+    return out
+
+
+# --------------------------------------------------------------- phase 23 --
+def _service_currents(n, seed=0):
+    """Tenant currents in [i_active, i_burst] of the branched cell
+    (benchmarks/_calibration.json) and QoS classes 0-1, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    cur = I_ACTIVE_BRANCHED + (I_BURST_BRANCHED - I_ACTIVE_BRANCHED) * \
+        rng.random(n)
+    return [float(c) for c in cur], [int(q) for q in rng.integers(0, 2, n)]
+
+
+def _service(run, t_end, lanes, reqs, **kw):
+    from repro_torch.serve import SimService
+    svc = SimService(runner=run, t_end=t_end, lanes=lanes, **kw)
+    for r in reqs:
+        svc.submit(r)
+    return svc.run()
+
+
+def _sim_runner(dev, n, t_end):
+    """The service's runner: phase 3's cell, network and horizon, the
+    currents per tenant."""
+    from repro_torch.core.exec_fap import make_fap_vardt_runner
+    model, net = _baseline_model_net(dev, n)
+    return make_fap_vardt_runner(model, net, 0.0, t_end,
+                                 horizon_impl="fused", device=dev)
+
+
+def phase_service(dev, main, smi, lanes=4, tenants=8, t_end=6.0):
+    """``SimService`` at full width: 4 lanes of N = 16384, 8 tenants, a
+    poisoned tenant; counts zeroed just before the batched service."""
+    from repro_torch.checkpoint import FaultPlan
+    from repro_torch.kernels import build
+    from repro_torch.serve import TenantRequest
+    run = _sim_runner(dev, N_MAIN, t_end)
+    cur, qos = _service_currents(tenants)
+    reqs = [TenantRequest(rid=r, iinj=cur[r], qos=qos[r])
+            for r in range(tenants)]
+    caps = {0: N_MAIN // 4}
+    poisoned, clean = 1, 0
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = _service(run, t_end, lanes, reqs, qos_caps=caps,
+                   fault=FaultPlan(poison_tenant=poisoned,
+                                   poison_at_round=4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    solo = {}
+    t1 = time.perf_counter()
+    for rid in (poisoned, clean):
+        solo[rid] = _service(run, t_end, 1, [reqs[rid]], qos_caps=caps)
+    solo_wall = time.perf_counter() - t1
+    spikes = {rid: int(r.count.sum()) for rid, r in res.results.items()
+              if r.status == "completed"}
+    same = {rid: np.array_equal(res.results[rid].times,
+                                solo[rid].results[rid].times)
+            and np.array_equal(res.results[rid].count,
+                               solo[rid].results[rid].count)
+            for rid in solo}
+    w = res.health["admission_wait_rounds"]
+    per_round = wall / max(res.rounds, 1) * 1e3
+    out = dict(lanes=lanes, tenants=tenants, t_end=t_end, rounds=res.rounds,
+               wall_s=wall, ms_per_round=per_round,
+               tenant_ms_per_s=tenants * t_end / wall, peak_gib=peak,
+               completed=res.completed, quarantines=res.quarantines,
+               retried=res.retried, wait_rounds=w, spikes=spikes,
+               solo_wall_s=solo_wall, solo_identical=same,
+               tenant_rounds={rid: r.rounds for rid, r in res.results.items()},
+               qos=qos, currents=cur, launches=launches)
+    say("service", f"SimService {lanes} lanes x N={N_MAIN} C=13 "
+        f"({lanes * N_MAIN} neurons a round), {tenants} tenants t_end="
+        f"{t_end} ms, currents {[round(c, 4) for c in cur]} nA, QoS "
+        f"{qos} (cap {caps}), poisoned rid {poisoned} at its round 4: "
+        f"{res.completed} completed, {res.evicted} evicted, {res.rejected} "
+        f"rejected, {res.quarantines} quarantines, {res.retried} retries; "
+        f"spikes {json.dumps(spikes)}")
+    say("service", f"{res.rounds} service rounds in {wall:.2f} s, "
+        f"{per_round:.1f} ms per service round beside phase 3's "
+        f"{_per_round(main):.1f} ms per round "
+        f"({per_round / _per_round(main):.2f}x), "
+        f"{tenants * t_end / wall:.3f} tenant-ms per wall second; "
+        f"admission wait mean {w['mean']:.1f} max {w['max']} rounds; peak "
+        f"memory {peak:.2f} GiB on {smi}; launches {json.dumps(launches)}")
+    say("service", f"solo 1-lane services of rid {poisoned} (poisoned in "
+        f"the batch) and rid {clean}: bitwise equal to the batch: "
+        f"{json.dumps({str(k): v for k, v in same.items()})} "
+        f"({solo_wall:.2f} s)")
+    if res.completed != tenants or res.quarantines < 1:
+        raise AssertionError(f"service: {res.completed} of {tenants} "
+                             f"completed, {res.quarantines} quarantines")
+    if not all(same.values()):
+        raise AssertionError("service: a tenant differs from its solo run")
+    if min(spikes.values()) <= 0:
+        raise AssertionError(f"service: a tenant without spikes {spikes}")
+    missing = [k for k in DENSE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"service path never launched {missing}")
+    return out
+
+
+# --------------------------------------------------------------- phase 24 --
+def _robust_pair(dev, n, t_end, d):
+    """A kill at 0.6 of the rounds then a resume, and a run with a
+    poisoned lane, of phase 3's runner at width ``n`` on ``dev``."""
+    from repro_torch.checkpoint import FaultPlan, SimulatedFailure
+    run = _runner(dev, n, t_end)
+    plain, rounds = run()
+    try:
+        run(checkpoint_every=4, ckpt_dir=f"{d}/kill",
+            fault=FaultPlan(fail_at_round=int(0.6 * rounds)))
+        raise AssertionError("robust card-vs-CPU: the kill did not fire")
+    except SimulatedFailure:
+        pass
+    resumed, r1 = run(checkpoint_every=4, ckpt_dir=f"{d}/kill", resume=True)
+    poisoned, r2 = run(checkpoint_every=4, ckpt_dir=f"{d}/poison",
+                       fault=FaultPlan(poison_at_round=rounds // 3,
+                                       poison_lane=n // 2))
+    if poisoned.health["rollbacks"] != 1:
+        raise AssertionError(f"robust card-vs-CPU: health "
+                             f"{poisoned.health}")
+    return [(_host_result(r), rr) for r, rr in ((plain, rounds),
+                                                 (resumed, r1),
+                                                 (poisoned, r2))]
+
+
+def _spmd_robust_rank(group, n, t_end, d, world_of_ckpt):
+    """On four ranks: the full-stack run, then killed and resumed; on two
+    ranks: the resume of the four-rank checkpoints (``world_of_ckpt``)."""
+    from repro_torch.checkpoint import FaultPlan, SimulatedFailure
+    from repro_torch.core.cell import CellModel
+    from repro_torch.core.morphology import branched_tree
+    from repro_torch.core.network import make_network
+    from repro_torch.distributed.exchange import ExchangeSpec
+    from repro_torch.distributed.fap_spmd import run_fap_spmd
+    model = CellModel(branched_tree(depth=2, seg_per_branch=2),
+                      device=group.device)
+    net = make_network(n, k_in=K_IN, seed=NET_SEED)
+    kw = dict(transport="sparse", exchange=ExchangeSpec(parcel_cap=64),
+              batch="compact", batch_cap=n // 2, horizon="incremental")
+
+    def run(**more):
+        res, rounds = run_fap_spmd(model, net, regime_currents(n), t_end,
+                                   group, **kw, **more)
+        return dict(ref=_host_result(res), rounds=rounds,
+                    health=res.health)
+
+    if group.world != world_of_ckpt:
+        return run(ckpt_dir=d, resume=True)
+    base = run()
+    try:
+        run(checkpoint_every=5, ckpt_dir=d,
+            fault=FaultPlan(fail_at_round=int(0.6 * base["rounds"])))
+        raise AssertionError("spmd robust: the kill did not fire")
+    except SimulatedFailure:
+        pass
+    return dict(base=base, resumed=run(ckpt_dir=d, resume=True))
+
+
+def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=5.0, lanes=3, tenants=5,
+                             t_service=3.0, n_spmd=256):
+    """Kill/resume and poison rollback at N = 64, card against CPU
+    bitwise; a 3-lane, 5-tenant service card against CPU bitwise; the
+    SPMD round at N = 256 on four card ranks killed and resumed on four
+    and on two ranks."""
+    from repro_torch.checkpoint import FaultPlan
+    from repro_torch.distributed.group import launch
+    from repro_torch.serve import TenantRequest
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        card = _robust_pair(dev, n, t_end, f"{d}/card")
+        cpu = _robust_pair(torch.device("cpu"), n, t_end, f"{d}/cpu")
+    (p, rp), (k, rk), (q, rq) = card
+    inner = _same_host(p, k) and _same_host(p, q) and rp == rk == rq
+    across = all(_same_host(a, b) and ra == rb
+                 for (a, ra), (b, rb) in zip(card, cpu))
+    say("robust-card-vs-cpu", f"N={n} C=13 t_end={t_end} ms: rounds {rp}, "
+        f"spikes {int(p['count'].sum())}; on the card kill/resume and "
+        f"poison rollback == the plain run: {inner}; card == CPU bitwise "
+        f"(plain, resumed, rolled back): {across} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (inner and across) or int(p["count"].sum()) <= 0:
+        raise AssertionError("robust card-vs-CPU: runs differ")
+    from repro_torch.core.network import regime_current
+    # above the fast regime: every tenant spikes within 3 ms and the CPU
+    # side stays short (phase 23 runs the QoS cap)
+    cur = [regime_current("fast", I_THRESH_BRANCHED) * (1.2 + 0.05 * r)
+           for r in range(tenants)]
+    reqs = [TenantRequest(rid=r, iinj=cur[r]) for r in range(tenants)]
+    a, b = [_service(_sim_runner(dv, n, t_service), t_service, lanes, reqs,
+                     fault=FaultPlan(poison_tenant=2, poison_at_round=3))
+            for dv in (dev, torch.device("cpu"))]
+    same = a.rounds == b.rounds and all(
+        (a.results[r].status, a.results[r].retries, a.results[r].rounds)
+        == (b.results[r].status, b.results[r].retries, b.results[r].rounds)
+        and np.array_equal(a.results[r].times, b.results[r].times)
+        for r in range(tenants))
+    spikes = [int(a.results[r].count.sum()) for r in range(tenants)]
+    say("robust-card-vs-cpu", f"SimService {lanes} lanes x N={n}, "
+        f"{tenants} tenants, t_end={t_service} ms, rid 2 poisoned: "
+        f"{a.completed} completed, {a.quarantines} quarantines, {a.rounds} "
+        f"rounds, spikes {spikes}; card == CPU bitwise (statuses, retries, "
+        f"rounds, spike trains): {same} ({time.perf_counter() - t0:.1f} s)")
+    if not same or a.completed != tenants or a.quarantines < 1 \
+            or min(spikes) <= 0:
+        raise AssertionError("robust card-vs-CPU: the services differ")
+    with tempfile.TemporaryDirectory() as d:
+        four = launch(RANKS, _spmd_robust_rank, n_spmd, t_end, d, RANKS,
+                      backend="gloo", device=dev)
+        two = launch(2, _spmd_robust_rank, n_spmd, t_end, d, RANKS,
+                     backend="gloo", device=dev)
+    base, res = four["base"], four["resumed"]
+    same4 = _same_host(base["ref"], res["ref"]) and \
+        base["rounds"] == res["rounds"]
+    same2 = _same_host(base["ref"], two["ref"]) and \
+        base["rounds"] == two["rounds"]
+    say("robust-card-vs-cpu", f"SPMD N={n_spmd} t_end={t_end} ms sparse, "
+        f"compact, incremental horizon on the card: rounds "
+        f"{base['rounds']}, spikes {int(base['ref']['count'].sum())}; "
+        f"killed on {RANKS} ranks, resumed from round "
+        f"{res['health']['resumed_from']} on {RANKS} ranks bitwise: {same4}"
+        f"; on 2 ranks (elastic_reseeded "
+        f"{two['health']['elastic_reseeded']}) bitwise: {same2} "
+        f"({time.perf_counter() - t0:.1f} s on {smi})")
+    if not (same4 and same2) or not two["health"]["elastic_reseeded"] \
+            or res["health"]["elastic_reseeded"]:
+        raise AssertionError("robust SPMD: resumed runs differ")
+    return dict(n=n, t_end=t_end, rounds=rp, service_rounds=a.rounds,
+                spmd_rounds=base["rounds"],
+                wall_s=time.perf_counter() - t0)
 
 
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
@@ -2031,7 +2419,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--t-end", type=float, default=12.0,
                     help="simulated ms of the full-width phases 3, 4, 9, "
-                    "18 and 19")
+                    "18 and 22")
     ap.add_argument("--out", default=None, help="also write results as JSON")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS",
                     help="also trace this many full-width rounds")
@@ -2069,9 +2457,12 @@ def main(argv=None):
     rows["flash_attention_f32_decode"] = f32.pop("row")
     rows["flash_attention_f32_prefill"] = f32.pop("prefill_row")
     plastic = phase_plastic_schur(dev, args.t_end, main_stats, smi)
-    spec = phase_speculative(dev, args.t_end, main_stats, act["spike_cap"],
+    spec = phase_speculative(dev, SPEC_T_END, main_stats, act["spike_cap"],
                              smi)
     new_vs_cpu = phase_new_paths_card_vs_cpu(dev, smi)
+    ckpt = phase_checkpoint(dev, args.t_end, main_stats, smi)
+    service = phase_service(dev, main_stats, smi)
+    robust_vs_cpu = phase_robust_card_vs_cpu(dev, smi)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -2086,6 +2477,7 @@ def main(argv=None):
                 **{key: rows[k][key] for key in ROW_KEYS}}
                for k in REPLACES]
     main_stats.pop("counts")
+    main_stats.pop("ref")
     for k in ("mask", "keys"):
         act.pop(k)
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
@@ -2098,7 +2490,9 @@ def main(argv=None):
              "other_baselines": others, "spmd": spmd,
              "attention": attn_rows, "serve": lm_stats,
              "lm_card_vs_cpu": lm_vs_cpu, "plastic_schur": plastic,
-             "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu},
+             "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu,
+             "checkpoint": ckpt, "service": service,
+             "robust_card_vs_cpu": robust_vs_cpu},
             indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,20 @@ def _segment_rank(tgt, n):
     return order, tgt_s, rank
 
 
+def add_lost(counter, lost, rows, n: int):
+    """``counter`` plus the events flagged in ``lost``.  The counter is a
+    scalar, or one count per tenant ([T]) in the tenant-batched queue and
+    record of ``exec_fap``'s ``tenant_round``, whose rows [t * n / T, (t +
+    1) * n / T) belong to tenant t; ``rows`` are the events' rows in
+    [0, n)."""
+    if counter.dim() == 0:
+        return counter + lost.sum().to(torch.int32)
+    T = counter.shape[0]
+    tenant = torch.clamp(rows.reshape(-1), 0, n - 1) // (n // T)
+    return counter + torch.bincount(tenant[lost.reshape(-1)],
+                                    minlength=T).to(torch.int32)
+
+
 def _write(eq, ok, row, slot, t_ev, w_ampa, w_gaba, order, tgt_s, n):
     """Write the ``ok`` events into (row, slot); count the others dropped."""
     te, wa, wg = t_ev[order], w_ampa[order], w_gaba[order]
@@ -53,7 +67,7 @@ def _write(eq, ok, row, slot, t_ev, w_ampa, w_gaba, order, tgt_s, n):
     new_t[r, s] = te[ok]
     new_a[r, s] = wa[ok]
     new_g[r, s] = wg[ok]
-    dropped = eq.dropped + ((tgt_s < n) & ~ok).sum().to(torch.int32)
+    dropped = add_lost(eq.dropped, (tgt_s < n) & ~ok, row, n)
     return EventQueue(new_t, new_a, new_g, dropped)
 
 
@@ -142,5 +156,5 @@ def record_spikes(rec: SpikeRecord, neuron, t_spike, valid) -> SpikeRecord:
     count.index_put_((neuron[keep],),
                      torch.ones_like(neuron[keep], dtype=torch.int32),
                      accumulate=True)
-    overflow = rec.overflow + (valid & ~ok).sum().to(torch.int32)
+    overflow = add_lost(rec.overflow, valid & ~ok, neuron, n)
     return SpikeRecord(times, count, overflow)

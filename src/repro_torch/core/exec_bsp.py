@@ -190,9 +190,7 @@ def make_bsp_fixed_runner(model: CellModel, net: Network, iinj, t_end: float,
             eq = spike_ins(eq, spiked_w, fixed_sum(torch.where(spk, tsp, 0.0)))
         return Y, eq, rec, n_ev
 
-    def run(**unported):
-        if unported:
-            raise _later("the robustness knobs of run()", 10)
+    def run():
         carry = (xc.batch_init(model, n), qops.make(n, dev),
                  ev.make_spike_record(n, SPK_CAP, dev),
                  torch.zeros((), dtype=torch.int32, device=dev))
@@ -309,16 +307,50 @@ def make_bsp_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
         return (sts, qops.make(n, dev), ev.make_spike_record(n, SPK_CAP, dev),
                 z, z, xc.SchedStats.zeros(dev))
 
-    def run(**unported):
-        if unported:
-            raise _later("the robustness knobs of run()", 10)
-        carry = init_carry()
-        for w in range(n_windows):
-            carry = window_body(carry, w)
-        sts, eq, rec, n_ev, n_rs, stats = carry
-        return RunResult(rec, sts.nst.sum(), n_ev, n_rs, eq.dropped,
-                         sts.failed.any(), sts.zn[:, 0], stats,
-                         solver=xc.solver_stats(sts))
+    def pack(c, w):
+        sts, eq, rec, n_ev, n_rs, stats = c
+        return xc.SimCarry(sts, eq, rec, (), {
+            "n_ev": n_ev, "n_rs": n_rs, "stats": stats, "rounds": w})
+
+    def step_fn(sc):
+        c = window_body((sc.sts, sc.eq, sc.rec, sc.counters["n_ev"],
+                         sc.counters["n_rs"], sc.counters["stats"]),
+                        sc.counters["rounds"])
+        return pack(c, sc.counters["rounds"] + 1)
+
+    def run(checkpoint_every: int = 0, ckpt_dir=None, resume: bool = False,
+            fault=None, watchdog=None, max_rollbacks: int = 2,
+            ckpt_keep: int = 3) -> RunResult:
+        """Run every window.  With no knob set, the host loop over
+        ``window_body``; any robustness knob runs the same windows under
+        ``exec_common.run_checkpointed``, the window index in
+        ``counters["rounds"]`` (the knobs as in ``make_fap_vardt_runner``'s
+        ``run``): killed-and-resumed and rolled-back runs are bitwise the
+        plain run, and ``RunResult.health`` records what happened."""
+        health = None
+        if not (checkpoint_every or resume or watchdog or fault is not None):
+            sc = pack(init_carry(), 0)
+            while sc.counters["rounds"] < n_windows:
+                sc = step_fn(sc)
+        else:
+            sc, health = xc.run_checkpointed(
+                lambda: pack(init_carry(), 0), step_fn,
+                lambda sc: sc.counters["rounds"] < n_windows,
+                ckpt_dir=ckpt_dir, checkpoint_every=checkpoint_every,
+                resume=resume, keep=ckpt_keep, fault=fault,
+                health_of=((lambda sc, t_prev: xc.health_check(sc.sts,
+                                                               t_prev))
+                           if watchdog is None or watchdog else None),
+                max_rollbacks=max_rollbacks)
+            health["dropped_events"] = int(sc.eq.dropped)
+        sts = sc.sts
+        failed = sts.failed.any()
+        if health is not None:
+            failed = failed | health["rollback_exhausted"]
+        return RunResult(sc.rec, sts.nst.sum(), sc.counters["n_ev"],
+                         sc.counters["n_rs"], sc.eq.dropped, failed,
+                         sts.zn[:, 0], sc.counters["stats"],
+                         solver=xc.solver_stats(sts), health=health)
 
     return run
 

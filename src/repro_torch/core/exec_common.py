@@ -351,6 +351,204 @@ def health_check(sts, t_prev, horizon=None, horizon_cap=None,
     return out
 
 
+def health_check_tenants(sts, t_prev, eps: float = 1e-9) -> dict:
+    """Per-tenant verdicts of ``health_check``'s invariants over a batched
+    carry whose ``sts`` leaves carry a leading [T] tenant axis ([T, N,
+    ...]); each tenant's verdict reduces over its own neurons only, so a
+    poisoned tenant never taints a neighbour's.  Returns tensors [T]:
+    ``nonfinite_lanes`` (i32, neurons whose zn/t/h went non-finite),
+    ``clock_regress`` (i32, clocks that moved backwards) and
+    ``solver_failed`` (bool, the BDF latched ``failed`` -- deterministic,
+    so the service evicts rather than retries)."""
+    T, n = sts.t.shape
+    zn_ok = torch.isfinite(sts.zn).reshape(T, n, -1).all(dim=2)
+    lane_bad = ~zn_ok | ~torch.isfinite(sts.t) | ~torch.isfinite(sts.h)
+    return {
+        "nonfinite_lanes": lane_bad.sum(dim=1).to(torch.int32),
+        "clock_regress": (sts.t < t_prev - eps).sum(dim=1).to(torch.int32),
+        "solver_failed": sts.failed.any(dim=1),
+    }
+
+
+def poison_lane(carry: SimCarry, lane: int, value=float("nan")) -> SimCarry:
+    """Fault injection: a copy of ``carry`` with lane ``lane``'s BDF
+    history set to ``value`` (non-finite by default) -- the failure the
+    watchdog must catch."""
+    zn = carry.sts.zn.clone()
+    zn[lane] = value
+    return carry._replace(sts=carry.sts._replace(zn=zn))
+
+
+def save_sim_checkpoint(ckpt_dir: str, rnd: int, carry: SimCarry,
+                        extras: dict = None, keep: int = 3) -> str:
+    """Atomic round-boundary snapshot (``repro_torch.checkpoint``) and
+    pruning to the ``keep`` newest; ``rnd`` is the scheduler round."""
+    from repro_torch.checkpoint import checkpoint as ck
+    path = ck.save_checkpoint(ckpt_dir, rnd, carry, extras=extras)
+    ck.prune_checkpoints(ckpt_dir, keep=keep)
+    return path
+
+
+def restore_sim_checkpoint(ckpt_dir: str, rnd: int, like: SimCarry):
+    """Restore a ``SimCarry`` snapshot into the structure of ``like``.
+
+    Returns (carry, extras, skipped): ``skipped`` lists the leaf paths
+    whose stored shape differs from ``like``'s; those leaves keep
+    ``like``'s value.  Only the layout-dependent ``hcarry`` leaves may
+    legitimately change shape (a resume on another number of ranks);
+    callers reject any other skip and reseed the horizon carry.  Every
+    restored leaf is integrity-checked (bytes and crc32), the stored tree
+    structure must be ``like``'s, and each leaf comes back as its like
+    leaf's kind (a Python int as an int)."""
+    from repro_torch.checkpoint import checkpoint as ck
+    path = ck.step_path(ckpt_dir, rnd)
+    manifest = ck.read_manifest(path)
+    leaves, treedef = ck.flatten(like)
+    ck.check_structure(manifest, leaves, treedef)
+    out, skipped = [], []
+    for entry, leaf, pstr in zip(manifest["entries"], leaves,
+                                 ck.leaf_paths(like)):
+        arr = ck.load_leaf(path, entry)
+        if tuple(arr.shape) != ck.leaf_shape(leaf):
+            skipped.append(pstr)
+            out.append(leaf)
+            continue
+        out.append(ck.like_leaf(arr, leaf))
+    return (ck.pytree.tree_unflatten(out, treedef), manifest["extras"],
+            skipped)
+
+
+def _sync(carry: SimCarry) -> None:
+    t = carry.sts.t
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def run_checkpointed(init_fn, step_fn, cond_fn, *, ckpt_dir=None,
+                     checkpoint_every: int = 0, resume: bool = False,
+                     keep: int = 3, fault=None, health_of=None,
+                     max_rollbacks: int = 2, reseed=None, fingerprint=None,
+                     extras_fn=None, log_fn=None, straggler=None,
+                     save_fn=None, restore_fn=None, poison_fn=None):
+    """Host-stepped round loop with round-boundary checkpoint/restore,
+    fault injection and the health watchdog: the preemption-tolerance
+    harness every vardt runner shares (``repro.core.exec_common
+    .run_checkpointed``).
+
+      init_fn() -> SimCarry                 fresh round-0 state
+      step_fn(SimCarry) -> SimCarry         one scheduler round (bumps
+                                            counters["rounds"])
+      cond_fn(SimCarry) -> bool             continue predicate
+      health_of(SimCarry, t_prev) -> dict   per-round watchdog counts
+                                            (``health_check``; None = off)
+      fault: ``checkpoint.FaultPlan``       round-boundary injection
+      reseed(SimCarry) -> SimCarry          re-derive ``hcarry`` after a
+                                            restore that skipped it or whose
+                                            ``fingerprint`` differs
+      fingerprint: JSON-able layout id      saved in the manifest extras
+      save_fn / restore_fn / poison_fn      the SPMD runner's gathered save,
+                                            sliced restore and rank-local
+                                            poison (defaults:
+                                            ``save_sim_checkpoint``,
+                                            ``restore_sim_checkpoint``,
+                                            ``poison_lane``)
+
+    A non-finite state quarantines the round: restore the last checkpoint
+    (round 0 via ``init_fn`` when none exists yet) and retry, at most
+    ``max_rollbacks`` times; then ``rollback_exhausted`` is set (the caller
+    folds it into ``RunResult.failed``).  A round is timed for the
+    straggler monitor after the device has finished it
+    (``torch.cuda.synchronize``), the watchdog's check apart.
+
+    Returns (final SimCarry, health dict).
+    """
+    import time
+
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.checkpoint.fault_tolerance import (SimulatedFailure,
+                                                        StragglerMonitor)
+
+    if (resume or checkpoint_every) and not ckpt_dir:
+        raise ValueError("checkpoint_every/resume need ckpt_dir=")
+    log = log_fn or (lambda *_: None)
+    save_fn = save_fn or save_sim_checkpoint
+    restore_fn = restore_fn or restore_sim_checkpoint
+    poison_fn = poison_fn or poison_lane
+    monitor = straggler if straggler is not None else StragglerMonitor()
+    health = empty_health(watchdog=health_of is not None)
+
+    def _restore(rnd, like):
+        carry, extras, skipped = restore_fn(ckpt_dir, rnd, like)
+        stale = fingerprint is not None and \
+            extras.get("fingerprint") != fingerprint
+        if skipped or stale:
+            bad = [p for p in skipped if "hcarry" not in p]
+            if bad or reseed is None:
+                raise ValueError(f"checkpoint leaf shapes changed outside "
+                                 f"the horizon carry: {skipped}")
+            carry = reseed(carry)
+            health["elastic_reseeded"] = True
+        return carry
+
+    carry = init_fn()
+    if resume:
+        last = ck.latest_step(ckpt_dir)
+        if last is not None:
+            carry = _restore(last, carry)
+            health["resumed_from"] = last
+            log(f"[sim-ft] resumed from round {last}")
+    rollbacks = 0
+    poison_pending = fault is not None and fault.poison_at_round is not None
+    fail_pending = fault is not None and fault.fail_at_round is not None
+    while cond_fn(carry):
+        rnd = int(carry.counters["rounds"])
+        if fail_pending and rnd >= fault.fail_at_round:
+            raise SimulatedFailure(rnd)
+        if poison_pending and rnd >= fault.poison_at_round:
+            poison_pending = False
+            carry = poison_fn(carry, fault.poison_lane, fault.poison_value)
+            log(f"[sim-ft] poisoned lane {fault.poison_lane} at round {rnd}")
+        if fault is not None and fault.mutate is not None:
+            carry = fault.mutate(rnd, carry)
+        t_prev = carry.sts.t
+        t0 = time.perf_counter()
+        new_carry = step_fn(carry)
+        _sync(new_carry)
+        dt = time.perf_counter() - t0
+        if health_of is not None:
+            chk = {k: int(v) for k, v in health_of(new_carry, t_prev).items()}
+            health["checks"] += 1
+            health["clock_regressions"] += chk.get("clock_regress", 0)
+            health["horizon_violations"] += chk.get("horizon_violations", 0)
+            if chk.get("nonfinite_lanes", 0):
+                health["nonfinite_rounds"] += 1
+                rollbacks += 1
+                if rollbacks > max_rollbacks:
+                    health["rollback_exhausted"] = True
+                    log(f"[sim-ft] non-finite state at round {rnd}: "
+                        f"retries exhausted")
+                    carry = new_carry
+                    break
+                health["rollbacks"] += 1
+                last = ck.latest_step(ckpt_dir) if ckpt_dir else None
+                to = "init" if last is None else f"round {last}"
+                log(f"[sim-ft] non-finite state at round {rnd}; rolling back "
+                    f"to {to}")
+                carry = init_fn() if last is None else _restore(last, carry)
+                continue
+        monitor.record(dt)
+        carry = new_carry
+        r2 = int(carry.counters["rounds"])
+        if checkpoint_every and r2 % checkpoint_every == 0:
+            ex = dict(extras_fn()) if extras_fn else {}
+            if fingerprint is not None:
+                ex["fingerprint"] = fingerprint
+            save_fn(ckpt_dir, r2, carry, extras=ex or None, keep=keep)
+            health["checkpoints_saved"] += 1
+    health["straggler"] = monitor.stats()
+    return carry, health
+
+
 def spike_rates(rec: ev.SpikeRecord, t_lo: float, t_hi: float):
     """Per-neuron firing rate (Hz) in a window; times in ms."""
     m = (rec.times >= t_lo) & (rec.times < t_hi)

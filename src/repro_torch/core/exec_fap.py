@@ -30,6 +30,8 @@ of 1c always runs ``round_cap_steps`` masked iterations, as the JAX
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple, Optional
+
 import torch
 
 from repro_torch import sched
@@ -41,8 +43,38 @@ from repro_torch.core.detmath import fma
 from repro_torch.core.exec_bsp import (EV_CAP, SPK_CAP, RunResult, _later,
                                        make_vardt_advance)
 from repro_torch.core.fixed_step import make_stepper
-from repro_torch.core.network import Network
+from repro_torch.core.network import Network, tile_network
 from repro_torch.kernels.event_wheel import ops as ew_ops
+
+
+class _Lanes(NamedTuple):
+    """What a round needs of the network its lanes hold: the device edge
+    list, the spike insert, the fused horizon's by-post layout (None
+    under the scatter horizon) and the lane ids."""
+    dnet: xc.DeviceNet
+    spike_ins: Callable
+    pre_byk: Optional[torch.Tensor]
+    delay_byk: Optional[torch.Tensor]
+    ids: torch.Tensor
+
+
+def _count(x, rows, dtype):
+    """The sum of ``x`` over all lanes (``rows`` None), or per tenant: one
+    sum per each of ``rows`` equal blocks of lanes."""
+    s = x.sum() if rows is None else x.reshape(rows, -1).sum(dim=1)
+    return s.to(dtype)
+
+
+def _map_lanes(carry, fn):
+    """``carry`` with ``fn`` applied to each per-lane leaf (the BDF state,
+    the queue's slot planes, the record's times and counts); the queue's
+    ``dropped``, the record's ``overflow`` and the counters stay."""
+    sts, eq, rec = carry[:3]
+    return (type(sts)(*[fn(x) for x in sts]),
+            eq._replace(t=fn(eq.t), w_ampa=fn(eq.w_ampa),
+                        w_gaba=fn(eq.w_gaba)),
+            rec._replace(times=fn(rec.times), count=fn(rec.count))) + \
+        tuple(carry[3:])
 
 
 def fixed_steps_below(horizon, t_clock, dt: float, cap: int):
@@ -124,9 +156,7 @@ def make_fap_fixed_runner(model: CellModel, net: Network, iinj, t_end: float,
                 qops.make(n, dev), ev.make_spike_record(n, SPK_CAP, dev),
                 z, z, 0)
 
-    def run(**unported):
-        if unported:
-            raise _later("the robustness knobs of run()", 10)
+    def run():
         carry = init_carry()
         while cond(carry):
             carry = round_body(carry)
@@ -187,8 +217,11 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
     iinj:         injected soma current (nA), a scalar or one per neuron.
     device:       "cuda" (default; raises without a card) or "cpu".
 
-    Returns a nullary runner ``run() -> (RunResult, rounds)`` that also
-    exposes ``run.init_carry`` / ``run.round_body`` / ``run.cond``.
+    Returns a runner ``run(**robustness) -> (RunResult, rounds)`` (the
+    knobs are in ``run``'s docstring) that also exposes
+    ``run.init_carry`` / ``run.round_body`` / ``run.cond``, the
+    ``SimCarry`` packing ``run.pack`` / ``run.unpack`` and the service's
+    ``run.tenant_round``.
     """
     dev = model.runner_device(device)
     n = net.n
@@ -251,7 +284,19 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
                                          device=dev), ids, tsp_b)
         return spike_ins(eq, spiked, t_sp)
 
-    def round_body(carry):
+    lanes0 = _Lanes(dnet, spike_ins,
+                    pre_byk if horizon_impl == "fused" else None,
+                    delay_byk if horizon_impl == "fused" else None,
+                    neuron_ids)
+
+    def _round(carry, iinj_r, ln=lanes0, rows=None, active=None, k_qos=None):
+        """One scheduler round over the lanes of ``ln``: the runner's own
+        network, or (``tenant_round``) ``rows`` tenants' copies of it side
+        by side, where every selection and count is taken per tenant,
+        ``active`` bool[rows] masks whole tenants out and ``k_qos``
+        i64[rows] restricts each tenant to its earliest k runnable lanes
+        (<= 0: no restriction)."""
+        R = rows or 1
         if incremental:
             sts, eq, rec, horizon, n_ev, n_rs, stats, rounds = carry
         else:
@@ -261,24 +306,33 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
             runnable = xc.runnable_mask(t_clock, horizon)
         elif horizon_impl == "fused":
             horizon, runnable = ew_ops.fused_horizon_select(
-                t_clock, pre_byk, delay_byk, t_end=t_end,
+                t_clock, ln.pre_byk, ln.delay_byk, t_end=t_end,
                 horizon_cap=horizon_cap, n_iters=n_bisect,
-                k_select=k_select if select == "threshold" else 0)
+                k_select=k_select if select == "threshold" else 0, rows=R)
         else:
-            horizon = xc.horizon_times(dnet, n, t_clock, t_end,
-                                       horizon_cap=horizon_cap)
+            horizon = xc.horizon_times(ln.dnet, t_clock.shape[0], t_clock,
+                                       t_end, horizon_cap=horizon_cap)
             runnable = xc.runnable_mask(t_clock, horizon)
         if k_select > 0 and select == "threshold" and \
                 (incremental or horizon_impl == "scatter"):
-            score = torch.where(runnable, t_clock, torch.inf)
+            score = torch.where(runnable, t_clock, torch.inf).reshape(R, -1)
             tau = ew_ops.select_threshold(score, k_select, n_iters=n_bisect)
-            runnable = runnable & (score <= tau)
+            runnable = runnable & (score <= tau[:, None]).reshape(-1)
         if k_select > 0 and select == "sort":
             # earliest-neuron-steps-next: keep only the K earliest runnable
-            score = torch.where(runnable, t_clock, torch.inf)
-            kth = torch.sort(score).values[min(k_select, n) - 1]
-            runnable = runnable & (score <= kth)
-        n_runnable = runnable.sum()
+            score = torch.where(runnable, t_clock, torch.inf).reshape(R, -1)
+            kth = torch.sort(score, dim=1).values[:, min(k_select, n) - 1]
+            runnable = runnable & (score <= kth[:, None]).reshape(-1)
+        if active is not None:
+            # an inactive tenant advances nothing
+            runnable = runnable & active.repeat_interleave(n)
+        if k_qos is not None:
+            # each tenant's QoS cap: its k_qos earliest runnable lanes
+            score = torch.where(runnable, t_clock, torch.inf).reshape(R, n)
+            k_eff = torch.where(k_qos > 0, torch.clamp(k_qos, max=n), n)
+            tau = ew_ops.select_threshold(score, k_eff, n_iters=n_bisect)
+            runnable = runnable & (score <= tau[:, None]).reshape(-1)
+        n_runnable = _count(runnable, rows, torch.int64)
 
         if batch == "compact":
             # compact -> step -> scatter: only the frontier pays the step
@@ -290,7 +344,7 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
             eqt_b, eqa_b, eqg_b = sched.gather_rows(eq, idc)
             sts_b, eqt_b, spiked_b, tsp_b, nd, nrs = advance(
                 sts_b, eqt_b, eqa_b, eqg_b, horizon[idc], lane_ok,
-                iinj_v[idc])
+                iinj_r[idc])
             sts = xc.scatter_lanes(sts, sts_b, ids)
             eq = sched.scatter_rows(eq, ids, eqt_b)
             rec = ev.record_spikes(rec, ids, tsp_b, spiked_b)
@@ -314,30 +368,84 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
                                   stats.rounds + 1)
         else:
             sts, eq_t, spiked, t_sp, nd, nrs = advance(
-                sts, eq.t, eq.w_ampa, eq.w_gaba, horizon, runnable, iinj_v)
+                sts, eq.t, eq.w_ampa, eq.w_gaba, horizon, runnable, iinj_r)
             eq = eq._replace(t=eq_t)
-            rec = ev.record_spikes(rec, neuron_ids, t_sp, spiked)
+            rec = ev.record_spikes(rec, ln.ids, t_sp, spiked)
             if bool(spiked.any()):
                 # a spike-free round inserts nothing: skipping is identical
-                eq = spike_ins(eq, spiked, t_sp)
+                eq = ln.spike_ins(eq, spiked, t_sp)
             stats = xc.SchedStats(stats.runnable + n_runnable,
                                   stats.stepped + n_runnable,
                                   stats.lanes + n,
                                   stats.rounds + 1)
-        out = (sts, eq, rec, n_ev + nd.sum().to(torch.int32),
-               n_rs + nrs.sum().to(torch.int32), stats, rounds + 1)
+        out = (sts, eq, rec, n_ev + _count(nd, rows, torch.int32),
+               n_rs + _count(nrs, rows, torch.int32), stats, rounds + 1)
         if incremental:
             out = out[:3] + (horizon,) + out[3:]
         return out
+
+
+    def round_body(carry):
+        return _round(carry, iinj_v)
+
+    tiled = {}
+
+    def _tenant_lanes(T):
+        """The lanes of T tenants' networks side by side (built once per
+        T): ``network.tile_network``'s edge tables, dense insert and
+        by-post layout."""
+        if T not in tiled:
+            tnet = tile_network(net, T)
+            tdnet = xc.to_device(tnet, dev)
+            ins = xc.make_spike_insert(tnet, tdnet, qops,
+                                       sched.edge_insert(qops, tnet))
+            pb, db = ew_ops.by_post_layout(tnet, dev) \
+                if horizon_impl == "fused" else (None, None)
+            tiled[T] = _Lanes(tdnet, ins, pb, db,
+                              torch.arange(T * n, dtype=torch.int64,
+                                           device=dev))
+        return tiled[T]
+
+    def tenant_round(carry, iinj, active, k_qos=0):
+        """One round of T tenants at once, the unit ``repro_torch.serve``
+        drives (JAX vmaps ``_round`` over the tenant axis).
+
+        ``carry`` is a batched carry (``serve.stack_lanes`` of
+        ``init_carry`` carries): every leaf has a leading [T] axis, the
+        queue's ``dropped``, the record's ``overflow`` and the counters are
+        [T].  ``iinj`` [T] (or [T, N]) the tenants' currents, ``active``
+        bool[T] masks tenants out (their state is untouched; their
+        ``rounds`` and ``stats`` still count, as under JAX's vmap),
+        ``k_qos`` i64[T] caps each tenant's frontier to its earliest k
+        lanes (<= 0: no cap).  The T networks run as T*N lanes of one round
+        over ``network.tile_network``'s tables: each lane's step is the
+        one it takes alone, and every selection, reduction and counter is
+        taken per tenant, so a tenant's trajectory does not depend on its
+        neighbours.  Dense batch and fan-out only: the compact batch and
+        fan-out would share one cap between tenants."""
+        if batch == "compact" or fanout == "compact":
+            raise _later("tenant_round with batch='compact' or "
+                         "fanout='compact' (one cap per tenant)", 15)
+        T = int(carry[0].t.shape[0])
+        i_lanes = torch.as_tensor(iinj, dtype=torch.float64, device=dev) \
+            .reshape(T, -1).expand(T, n).reshape(-1)
+        act = torch.as_tensor(active, dtype=torch.bool, device=dev)
+        kq = torch.as_tensor(k_qos, dtype=torch.int64, device=dev).expand(T)
+        flat = _map_lanes(carry, lambda x: x.reshape((-1,) + x.shape[2:]))
+        out = _round(flat, i_lanes, _tenant_lanes(T), T, act.reshape(T), kq)
+        return _map_lanes(out, lambda x: x.reshape((T, -1) + x.shape[1:]))
 
     def cond(carry):
         sts, rounds = carry[0], carry[-1]
         return bool(sts.t.min() < t_end - 1e-9) and int(rounds) < max_rounds \
             and not bool(sts.failed.any())
 
-    def init_carry():
+    def init_carry(iinj=None):
+        """Fresh round-0 carry; ``iinj`` overrides the construction-time
+        current (a tenant's, in ``repro_torch.serve``)."""
+        iv = iinj_v if iinj is None else xc.per_neuron(iinj, n, dev)
         Y = xc.batch_init(model, n)
-        sts = bdf.reinit(model, 0.0, Y, iinj_v, opts)
+        sts = bdf.reinit(model, 0.0, Y, iv, opts)
         eq = qops.make(n, dev)
         rec = ev.make_spike_record(n, SPK_CAP, dev)
         z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -348,25 +456,80 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
             carry = carry[:3] + (hor0,) + carry[3:]
         return carry
 
-    def run(**unported):
-        if unported:
-            raise _later("the robustness knobs of run()", 10)
-        carry = init_carry()
-        while cond(carry):
-            carry = round_body(carry)
-        sts, eq, rec = carry[:3]
-        n_ev, n_rs, stats, rounds = carry[-4:]
-        return RunResult(rec, sts.nst.sum(), n_ev, n_rs, eq.dropped,
-                         sts.failed.any(), sts.zn[:, 0], stats,
-                         solver=xc.solver_stats(sts)), rounds
+    # the round carry <-> SimCarry: hcarry holds the incremental horizon,
+    # the counters ride a dict, so a checkpoint holds the whole round state
+    def pack(c):
+        if incremental:
+            sts, eq, rec, horizon, n_ev, n_rs, stats, rounds = c
+            h = (horizon,)
+        else:
+            sts, eq, rec, n_ev, n_rs, stats, rounds = c
+            h = ()
+        return xc.SimCarry(sts, eq, rec, h, {
+            "n_ev": n_ev, "n_rs": n_rs, "stats": stats, "rounds": rounds})
 
-    def tenant_round(carry, iinj, active, k_qos=0):
-        raise _later("tenant_round (multi-tenant serving)", 11)
+    def unpack(sc):
+        c = (sc.sts, sc.eq, sc.rec, sc.counters["n_ev"],
+             sc.counters["n_rs"], sc.counters["stats"],
+             sc.counters["rounds"])
+        return c[:3] + tuple(sc.hcarry) + c[3:] if incremental else c
+
+    def _result(sc, health=None):
+        sts = sc.sts
+        failed = sts.failed.any()
+        if health is not None:
+            failed = failed | health["rollback_exhausted"]
+        return RunResult(sc.rec, sts.nst.sum(), sc.counters["n_ev"],
+                         sc.counters["n_rs"], sc.eq.dropped, failed,
+                         sts.zn[:, 0], sc.counters["stats"],
+                         solver=xc.solver_stats(sts), health=health)
+
+    def run(checkpoint_every: int = 0, ckpt_dir=None, resume: bool = False,
+            fault=None, watchdog=None, max_rollbacks: int = 2,
+            ckpt_keep: int = 3):
+        """Run to t_end: (RunResult, rounds).
+
+        With no knob set, the host loop over ``round_body``.  Any knob runs
+        the same rounds under ``exec_common.run_checkpointed``:
+        ``checkpoint_every=k`` snapshots the whole round state
+        (``SimCarry``) into ``ckpt_dir`` every k rounds (the ``ckpt_keep``
+        newest kept), ``resume=True`` restarts from the latest complete
+        snapshot, ``fault`` (``checkpoint.FaultPlan``) kills or poisons at
+        a round boundary, and the watchdog (on unless ``watchdog=False``)
+        checks every round and rolls a non-finite state back to the last
+        snapshot, at most ``max_rollbacks`` times (then ``failed``).  The
+        rounds are the plain run's, so a killed-and-resumed or rolled-back
+        run is bitwise equal to it; ``RunResult.health`` records what
+        happened."""
+        if not (checkpoint_every or resume or watchdog or fault is not None):
+            carry = init_carry()
+            while cond(carry):
+                carry = round_body(carry)
+            return _result(pack(carry)), carry[-1]
+        health_of = None
+        if watchdog is None or watchdog:
+            def health_of(sc, t_prev):
+                return xc.health_check(
+                    sc.sts, t_prev,
+                    horizon=sc.hcarry[0] if incremental else None,
+                    horizon_cap=horizon_cap)
+
+        sc, health = xc.run_checkpointed(
+            lambda: pack(init_carry()),
+            lambda sc: pack(round_body(unpack(sc))),
+            lambda sc: cond(unpack(sc)),
+            ckpt_dir=ckpt_dir, checkpoint_every=checkpoint_every,
+            resume=resume, keep=ckpt_keep, fault=fault,
+            health_of=health_of, max_rollbacks=max_rollbacks)
+        health["dropped_events"] = int(sc.eq.dropped)
+        return _result(sc, health), sc.counters["rounds"]
 
     run.init_carry = init_carry
     run.round_body = round_body
     run.tenant_round = tenant_round
     run.cond = cond
+    run.pack = pack
+    run.unpack = unpack
     run.incremental = incremental
     run.batch_cap = cap
     run.spike_cap = s_cap

@@ -97,3 +97,20 @@ def delay_histogram(net: Network, bin_ms: float = 0.1):
     bins = np.arange(MIN_DELAY, MAX_DELAY + bin_ms, bin_ms)
     hist, edges = np.histogram(net.delay, bins=bins)
     return hist, edges
+
+
+def tile_network(net: Network, copies: int) -> Network:
+    """``copies`` disjoint copies of ``net`` as one network of copies * N
+    neurons: copy t's neuron i is t * N + i, its edges those of ``net``
+    shifted by t * N, in copy order (the by-post grouping of
+    ``make_network`` holds).  The lanes of the tenant-batched round
+    (``exec_fap``'s ``tenant_round``)."""
+    n, E = int(net.n), net.n_edges
+    shift = np.repeat(np.arange(copies, dtype=np.int64) * n, E)
+    tile = lambda a: np.tile(np.asarray(a), copies)  # noqa: E731
+    return Network(n=n * copies,
+                   pre=(tile(net.pre) + shift).astype(np.int32),
+                   post=(tile(net.post) + shift).astype(np.int32),
+                   delay=tile(net.delay), w_ampa=tile(net.w_ampa),
+                   w_gaba=tile(net.w_gaba), min_delay=net.min_delay,
+                   block=None if net.block is None else tile(net.block))

@@ -27,15 +27,22 @@ ragged class), the port reads the deciding count on the host once per
 round.  Overflow of queues and parcels stays detected, never silent:
 ``dropped`` counts both.
 
+``run_fap_spmd`` drives the round under the shared preemption harness
+(``exec_common.run_checkpointed``): round-boundary checkpoints of the
+whole network's state, gathered in placed order and written by rank 0
+(collectives tagged ``checkpoint``), resume on the same or another number
+of ranks, fault injection and the watchdog.
+
 Not ported here: ``optimized=False`` (the GSPMD-lowered global round,
-whose collectives XLA inserts) and the checkpoint and fault knobs of
-``run_fap_spmd``; they raise ``NotImplementedError`` (ROADMAP items 12
-and 10).
+whose collectives XLA inserts); it raises ``NotImplementedError``
+(ROADMAP item 12).
 """
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import sched
@@ -48,6 +55,7 @@ from repro_torch.distributed import placement as plc
 from repro_torch.distributed.exchange import ExchangeSpec, get_transport
 
 OTHER_TAG = "other"      # telemetry, the loop's cond and the final gathers
+CKPT_TAG = "checkpoint"  # the gathers of a checkpoint save
 
 
 class PaperNeuroSpec(NamedTuple):
@@ -275,22 +283,28 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
     and solver counters are gathered once at the end.  ``dropped`` counts
     queue and parcel overflow.  ``placement``: a ``placement.Placement``
     or a method name -- the relabeling is applied before sharding and
-    inverted on the result.  The watchdog (on by default) checks every
-    round (``exec_common.health_check``, summed over the ranks) and rolls
-    back to round 0 on a non-finite state, at most ``max_rollbacks``
-    times; then ``health["rollback_exhausted"]`` and ``failed`` are set.
-    ``RunResult.comm`` holds the realised parcel bytes, the rounds, the
-    largest (source, destination) parcel count of each round over all
-    ranks (``parcel_peak``; zeros for allgather) and this rank's
-    per-channel counters (bytes, host seconds, calls) of the run.
+    inverted on the result.  ``RunResult.comm`` holds the realised parcel
+    bytes, the rounds, the largest (source, destination) parcel count of
+    each round over all ranks (``parcel_peak``; zeros for allgather) and
+    this rank's per-channel counters (bytes, host seconds, calls) of the
+    run.
 
-    ``checkpoint_every``, ``ckpt_dir``, ``resume`` and ``fault`` are not
-    ported yet (ROADMAP item 10); ``health["straggler"]`` stays None.
+    Preemption tolerance (``exec_common.run_checkpointed``):
+    ``checkpoint_every=k`` snapshots the whole network's round state every
+    k rounds into ``ckpt_dir`` (rank 0 writes the carry gathered in placed
+    order; the ``ckpt_keep`` newest are kept); ``resume=True`` restarts
+    from the latest one, each rank taking its own rows, bitwise the
+    uninterrupted run.  A resume on another number of ranks reseeds the
+    incremental horizon's carry, whose layout depends on it (the
+    fingerprint: ranks, transport, batch cap, horizon mode), and sets
+    ``health["elastic_reseeded"]``; a resume under another placement is
+    refused.  ``fault`` (``checkpoint.FaultPlan``) kills, or poisons a lane
+    (a placed id), at a round boundary; the watchdog (on by default)
+    checks every round, summed over the ranks, and rolls a non-finite
+    state back to the last checkpoint (round 0 if none), at most
+    ``max_rollbacks`` times; then ``health["rollback_exhausted"]`` and
+    ``failed`` are set.
     """
-    if checkpoint_every or ckpt_dir is not None or resume or \
-            fault is not None:
-        raise _later("checkpointing, resume and fault injection of "
-                     "run_fap_spmd", 10)
     dev = model.runner_device(group.device)
     S, rank = group.world, group.rank
     pl = None
@@ -322,15 +336,18 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
         (shard_rows(xc.per_neuron(iinj, n, dev), group),)
     neuron_ids = torch.arange(n_local, dtype=torch.int64, device=dev)
 
-    def seed_hcarry(t_local):
-        """(horizon, previous boundary clocks, moved ids) at round 0: the
-        full horizon, all-zero previous clocks (every frontier entry looks
-        moved next round) and sentinel moved ids."""
+    def seed_hcarry(t_local, table=None):
+        """(horizon, previous boundary clocks, moved ids) from the clocks:
+        the full horizon over ``table``, the whole network's clocks (all
+        zero at round 0), all-zero previous clocks (every frontier entry
+        looks moved next round: a recompute, exact) and sentinel moved
+        ids.  Round 0 and a resume on another layout share it."""
         b_shape, m_shape = fn.carry_shapes
         dloc = xc.DeviceNet(static[0], torch.arange(n_local, device=dev)
                             .repeat_interleave(k), static[1], static[2],
                             static[3])
-        table = torch.zeros((n,), dtype=torch.float64, device=dev)
+        if table is None:
+            table = torch.zeros((n,), dtype=torch.float64, device=dev)
         hor0 = xc.horizon_times(dloc, n_local, t_local, t_end,
                                 t_table=table, horizon_cap=horizon_cap)
         return (hor0, torch.zeros(b_shape, dtype=torch.float64, device=dev),
@@ -345,7 +362,9 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
                            ev.make_spike_record(n_local, spk_cap, dev),
                            seed_hcarry(sts.t) if fn.incremental else (),
                            {"n_ev": z, "n_rs": z, "dropped": z,
-                            "parcel_bytes": 0, "parcel_peak": (),
+                            "parcel_bytes": 0,
+                            "parcel_peak": torch.zeros(
+                                (max_rounds,), dtype=torch.int64, device=dev),
                             "rounds": 0})
 
     def step_fn(sc):
@@ -354,12 +373,13 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
             ppeak = out[:11]
         rec = ev.record_spikes(sc.rec, neuron_ids, t_sp, spiked)
         c = sc.counters
+        peak = c["parcel_peak"].clone()
+        peak[c["rounds"]] = ppeak
         return xc.SimCarry(sts, (eq_t, eq_a, eq_g), rec, out[11:], {
             "n_ev": c["n_ev"] + nd, "n_rs": c["n_rs"] + nrs,
             "dropped": c["dropped"] + dropped,
             "parcel_bytes": c["parcel_bytes"] + pbytes,
-            "parcel_peak": c["parcel_peak"] + (ppeak,),
-            "rounds": c["rounds"] + 1})
+            "parcel_peak": peak, "rounds": c["rounds"] + 1})
 
     def cond_fn(sc):
         if sc.counters["rounds"] >= max_rounds:
@@ -379,29 +399,80 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
                                .to(torch.int64), "sum", OTHER_TAG).tolist()
         return dict(zip(keys, tot))
 
-    # the host loop of ``exec_common.run_checkpointed``, without the
-    # checkpoint and fault parts (ROADMAP item 10)
-    health = xc.empty_health(watchdog=watchdog)
-    carry, rollbacks = init_fn(), 0
-    while cond_fn(carry):
-        t_prev = carry.sts.t
-        new_carry = step_fn(carry)
-        if watchdog:
-            chk = health_of(new_carry, t_prev)
-            health["checks"] += 1
-            health["clock_regressions"] += chk.get("clock_regress", 0)
-            health["horizon_violations"] += chk.get("horizon_violations", 0)
-            if chk.get("nonfinite_lanes", 0):
-                health["nonfinite_rounds"] += 1
-                rollbacks += 1
-                if rollbacks > max_rollbacks:
-                    health["rollback_exhausted"] = True
-                    carry = new_carry
-                    break
-                health["rollbacks"] += 1
-                carry = init_fn()
-                continue
-        carry = new_carry
+    # --- checkpoints of the whole network, in placed order ---------------
+    # per-lane leaves are gathered in rank order; the counters are the same
+    # on every rank, but for the record's overflow (summed, restored to
+    # rank 0) and the parcel peaks (the max over the ranks, restored to all)
+    def global_carry(sc):
+        gather = lambda x: group.all_gather(x, CKPT_TAG)  # noqa: E731
+        c, rec = sc.counters, sc.rec
+        return xc.SimCarry(
+            type(sc.sts)(*[gather(x) for x in sc.sts]),
+            tuple(gather(x) for x in sc.eq),
+            ev.SpikeRecord(gather(rec.times), gather(rec.count),
+                           group.all_reduce(rec.overflow, "sum", CKPT_TAG)),
+            tuple(gather(x) for x in sc.hcarry),
+            dict(c, parcel_peak=group.all_reduce(c["parcel_peak"], "max",
+                                                 CKPT_TAG)))
+
+    def global_like(sc):
+        rows = lambda x: x.new_zeros((S * x.shape[0],)  # noqa: E731
+                                     + tuple(x.shape[1:]))
+        return xc.SimCarry(type(sc.sts)(*[rows(x) for x in sc.sts]),
+                           tuple(rows(x) for x in sc.eq),
+                           sc.rec._replace(times=rows(sc.rec.times),
+                                           count=rows(sc.rec.count)),
+                           tuple(rows(x) for x in sc.hcarry), sc.counters)
+
+    def local_carry(gc):
+        rows = lambda x: shard_rows(x, group)  # noqa: E731
+        rec = gc.rec
+        return xc.SimCarry(
+            type(gc.sts)(*[rows(x) for x in gc.sts]),
+            tuple(rows(x) for x in gc.eq),
+            ev.SpikeRecord(rows(rec.times), rows(rec.count),
+                           rec.overflow if rank == 0
+                           else torch.zeros_like(rec.overflow)),
+            tuple(rows(x) for x in gc.hcarry), gc.counters)
+
+    placed = None if pl is None else \
+        hashlib.sha256(np.asarray(pl.perm, np.int64).tobytes()).hexdigest()
+
+    def save_fn(ckpt_dir, rnd, sc, extras=None, keep=3):
+        gc = global_carry(sc)
+        if rank == 0:
+            xc.save_sim_checkpoint(ckpt_dir, rnd, gc, extras=extras,
+                                   keep=keep)
+
+    def restore_fn(ckpt_dir, rnd, like):
+        gc, extras, skipped = xc.restore_sim_checkpoint(ckpt_dir, rnd,
+                                                        global_like(like))
+        if extras.get("placement") != placed:
+            raise ValueError("the checkpoint was written under another "
+                             "placement; resume with the same one")
+        return local_carry(gc), extras, skipped
+
+    def poison_fn(sc, lane, value):
+        off = rank * n_local
+        if off <= lane < off + n_local:
+            return xc.poison_lane(sc, lane - off, value)
+        return sc
+
+    # the incremental horizon's carry depends on the layout: a resume
+    # under another one reseeds it from the restored clocks
+    fingerprint = {"world": S, "transport": transport,
+                   "batch_cap": int(batch_cap), "horizon": horizon} \
+        if fn.incremental else None
+    carry, health = xc.run_checkpointed(
+        init_fn, step_fn, cond_fn, ckpt_dir=ckpt_dir,
+        checkpoint_every=checkpoint_every, resume=resume, keep=ckpt_keep,
+        fault=fault, health_of=health_of if watchdog else None,
+        max_rollbacks=max_rollbacks, fingerprint=fingerprint,
+        reseed=(lambda sc: sc._replace(hcarry=seed_hcarry(
+            sc.sts.t, group.all_gather(sc.sts.t, CKPT_TAG))))
+        if fn.incremental else None,
+        extras_fn=lambda: {"placement": placed}, save_fn=save_fn,
+        restore_fn=restore_fn, poison_fn=poison_fn)
     sts, rec, cnt = carry.sts, carry.rec, carry.counters
     # --- gather the whole network's result onto every rank ----------------
     solver = xc.solver_stats(sts)
@@ -415,9 +486,9 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
                          group.all_gather(rec.count, OTHER_TAG),
                          tot[len(names)].to(torch.int32))
     y_final = group.all_gather(sts.zn[:, 0], OTHER_TAG)
-    peak = group.all_reduce(torch.stack(cnt["parcel_peak"]), "max",
-                            OTHER_TAG).tolist() if cnt["parcel_peak"] else []
     rounds = int(cnt["rounds"])
+    peak = group.all_reduce(cnt["parcel_peak"][:rounds], "max",
+                            OTHER_TAG).tolist() if rounds else []
     health["dropped_events"] = int(cnt["dropped"])
     failed = bool(tot[-1]) or health["rollback_exhausted"]
     res = RunResult(rec, solver["nst"], cnt["n_ev"].to(torch.int32),

@@ -3,10 +3,11 @@
 Converts the JAX package's ``Network``, ``CellParams``, ``BDFState``
 (of either cell, under either preconditioner: the flat factor rows keep
 their width, ``n_factors("schur")`` included), ``EventQueue``,
-``WheelQueue``, ``SpikeRecord``, the speculative runner's ``SpecStats``
-and the incremental horizon of the compact runner's carry -- handed over
-as NamedTuples (or any object with those fields) of numpy arrays -- into
-the port's tensors, and
+``WheelQueue``, ``SpikeRecord``, the speculative runner's ``SpecStats``,
+the incremental horizon of the compact runner's carry, a whole
+round-boundary ``SimCarry`` and the tenant-batched round carry of the
+service -- handed over as NamedTuples (or any object with those fields)
+of numpy arrays -- into the port's tensors, and
 the port's back into dicts of numpy arrays that rebuild the JAX
 NamedTuples with ``Cls(**d)``.  ``lm_params_from_numpy`` carries an LM's
 parameter tree across.  Nothing here imports the JAX package: the
@@ -24,6 +25,7 @@ import torch
 from repro_torch.core.bdf import BDFState
 from repro_torch.core.cell import CellParams
 from repro_torch.core.events import EventQueue, SpikeRecord
+from repro_torch.core.exec_common import SchedStats, SimCarry
 from repro_torch.core.exec_speculative import SpecStats
 from repro_torch.core.network import Network
 from repro_torch.sched.wheel import WheelQueue
@@ -132,6 +134,96 @@ def spec_stats_from_numpy(stats, device) -> SpecStats:
 
 def spec_stats_to_numpy(stats: SpecStats) -> dict:
     return {k: _numpy(v) for k, v in stats._asdict().items()}
+
+
+def sched_stats_from_numpy(stats, device) -> SchedStats:
+    """``SchedStats`` (runnable, stepped, lanes i64; rounds i32)."""
+    f = _fields(stats, SchedStats._fields)
+    return SchedStats(*[torch.as_tensor(np.asarray(f[k]).astype(dt),
+                                        device=device)
+                        for k, dt in zip(SchedStats._fields,
+                                         (np.int64,) * 3 + (np.int32,))])
+
+
+def sched_stats_to_numpy(stats: SchedStats) -> dict:
+    return {k: _numpy(v) for k, v in stats._asdict().items()}
+
+
+def _queue_from_numpy(eq, device):
+    """A dense or wheel queue (chosen by the class name), or the SPMD
+    round's raw (t, w_ampa, w_gaba) planes."""
+    if type(eq).__name__ == "WheelQueue":
+        return wheel_queue_from_numpy(eq, device)
+    if hasattr(eq, "_fields") or isinstance(eq, dict):
+        return event_queue_from_numpy(eq, device)
+    return tuple(_tensor(x, device) for x in eq)
+
+
+def _queue_to_numpy(eq):
+    if hasattr(eq, "_asdict"):
+        return {k: _numpy(v) for k, v in eq._asdict().items()}
+    return tuple(_numpy(x) for x in eq)
+
+
+def _counters_from_numpy(counters, device) -> dict:
+    out = {}
+    for k, v in counters.items():
+        if k == "stats":
+            out[k] = sched_stats_from_numpy(v, device)
+        elif k == "rounds":
+            out[k] = int(np.asarray(v))
+        else:
+            out[k] = _tensor(v, device)
+    return out
+
+
+def sim_carry_from_numpy(sc, device) -> SimCarry:
+    """A JAX ``repro.core.exec_common.SimCarry`` (numpy leaves) -> the
+    port's: the batched ``BDFState``, the queue (``WheelQueue`` when its
+    class is named so, else ``EventQueue``; the SPMD planes stay a
+    tuple), the spike record, the ``hcarry`` arrays and the counters
+    (``stats`` a ``SchedStats``, ``rounds`` a Python int, as the port's
+    runners carry it)."""
+    f = _fields(sc, SimCarry._fields)
+    return SimCarry(bdf_state_from_numpy(f["sts"], device),
+                    _queue_from_numpy(f["eq"], device),
+                    spike_record_from_numpy(f["rec"], device),
+                    tuple(_tensor(x, device) for x in f["hcarry"]),
+                    _counters_from_numpy(f["counters"], device))
+
+
+def sim_carry_to_numpy(sc) -> dict:
+    """The port's ``SimCarry`` -> a dict of the same fields, each a dict
+    (or tuple) of numpy arrays; ``counters["stats"]`` a dict too."""
+    counters = {k: (sched_stats_to_numpy(v) if k == "stats" else
+                    np.asarray(v) if k == "rounds" else _numpy(v))
+                for k, v in sc.counters.items()}
+    return {"sts": bdf_state_to_numpy(sc.sts), "eq": _queue_to_numpy(sc.eq),
+            "rec": spike_record_to_numpy(sc.rec),
+            "hcarry": tuple(_numpy(x) for x in sc.hcarry),
+            "counters": counters}
+
+
+def tenant_carry_from_numpy(carry, device) -> tuple:
+    """The service's batched round carry of JAX (``stack_lanes`` of
+    ``init_carry`` carries, every leaf with a leading [T] axis: (sts, eq,
+    rec, n_ev, n_rs, stats, rounds), numpy leaves) -> the port's, the
+    input of ``run.tenant_round`` (``rounds`` an i64[T] tensor, as the
+    port's ``serve.stack_lanes`` makes it)."""
+    sts, eq, rec, n_ev, n_rs, stats, rounds = carry
+    return (bdf_state_from_numpy(sts, device), _queue_from_numpy(eq, device),
+            spike_record_from_numpy(rec, device), _tensor(n_ev, device),
+            _tensor(n_rs, device), sched_stats_from_numpy(stats, device),
+            torch.as_tensor(np.asarray(rounds, np.int64), device=device))
+
+
+def tenant_carry_to_numpy(carry) -> tuple:
+    """The port's batched round carry -> a tuple of the same slots, as
+    dicts of numpy arrays and arrays."""
+    sts, eq, rec, n_ev, n_rs, stats, rounds = carry
+    return (bdf_state_to_numpy(sts), _queue_to_numpy(eq),
+            spike_record_to_numpy(rec), _numpy(n_ev), _numpy(n_rs),
+            sched_stats_to_numpy(stats), _numpy(rounds))
 
 
 def lm_params_from_numpy(cfg, params, device) -> dict:

@@ -85,38 +85,43 @@ def spike_compact(mask, values, cap: int):
 
 
 def select_threshold(score, k, n_iters: int = 48):
-    """Smallest bisection point tau with count(score <= tau) >= k.
+    """Smallest bisection point tau with count(score <= tau) >= k, along
+    the last axis (a row [T, N] of scores gets its own tau, k a scalar or
+    one per row).
 
     ``score <= tau`` then selects the K earliest runnable neurons; fewer
     than k finite scores -> tau = max finite (select all).  Reductions
     only, no host synchronisation.
     """
     finite = torch.isfinite(score)
-    any_run = finite.any()
-    lo = torch.where(finite, score, torch.inf).amin()
-    hi = torch.where(finite, score, -torch.inf).amax()
+    any_run = finite.any(dim=-1)
+    lo = torch.where(finite, score, torch.inf).amin(dim=-1)
+    hi = torch.where(finite, score, -torch.inf).amax(dim=-1)
     for _ in range(n_iters):
         mid = 0.5 * (lo + hi)
-        enough = (score <= mid).sum() >= k
+        enough = (score <= mid[..., None]).sum(dim=-1) >= k
         lo, hi = torch.where(enough, lo, mid), torch.where(enough, mid, hi)
     return torch.where(any_run, hi, torch.inf)
 
 
 def fused_horizon_select(t_clock, pre_byk, delay_byk, *, t_end: float,
                          horizon_cap: float, k_select: int = 0,
-                         n_iters: int = 48):
+                         n_iters: int = 48, rows: int = 1):
     """Scheduler-round notification half: (horizon[N], runnable bool[N]).
 
     t_clock: f64[N]; pre_byk: i32[K, N], delay_byk: f64[K, N] (column i
     holds neuron i's K in-edges).  With k_select > 0 the mask is
-    restricted to the K earliest runnable neurons by threshold count.
+    restricted to the K earliest runnable neurons by threshold count, in
+    each of ``rows`` equal blocks of lanes (the tenants of a batched
+    round).
     """
     hor, score = horizon_score(t_clock, pre_byk, delay_byk, t_end=t_end,
                                horizon_cap=horizon_cap)
     runnable = torch.isfinite(score)
     if k_select > 0:
-        tau = select_threshold(score, k_select, n_iters=n_iters)
-        runnable = runnable & (score <= tau)
+        by_row = score.reshape(rows, -1)
+        tau = select_threshold(by_row, k_select, n_iters=n_iters)
+        runnable = runnable & (by_row <= tau[:, None]).reshape(-1)
     return hor, runnable
 
 

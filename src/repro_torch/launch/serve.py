@@ -1,8 +1,11 @@
-"""LM serving launcher of the port: the continuous-batching loop of
-``repro/launch/serve.py`` on the PyTorch model::
+"""Serving launcher of the port (``repro/launch/serve.py``): the LM's
+continuous-batching loop on the PyTorch model, or (``--sim``) the
+multi-tenant simulation service::
 
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
         --requests 16 --device cpu
+    python -m repro_torch.launch.serve --sim --tenants 6 --lanes 3 \\
+        --t-end 5 --device cpu
 
 Requests arrive with prompts of 4-31 tokens; each is admitted into a free
 batch slot and prefilled by feeding its prompt through the batched decode
@@ -12,7 +15,13 @@ Then all slots decode in lockstep, greedily, at one shared host-side
 ``t_pos``; a slot retires after ``--max-new`` tokens or at the end of
 the cache, and the whole window resets when the cache is exhausted (the
 reference's toy rollover).  On the card every attention call is flash
-attention (K10).  The simulation service (``--sim``) is not ported yet.
+attention (K10).
+
+``--sim`` serves ``--tenants`` FAP simulations of ``--n`` soma neurons
+(``make_network(n, k_in=4, seed)``, currents 0.14-0.17 nA and QoS classes
+0-1 from ``--seed``) through ``--lanes`` lanes of a ``SimService``, with
+an optional poisoned tenant and per-tenant checkpoints, and prints the
+accounting.
 """
 from __future__ import annotations
 
@@ -153,10 +162,52 @@ def lm_main(args) -> ServeResult:
     return res
 
 
+def sim_main(args):
+    """The ``--sim`` service run; prints its accounting and returns its
+    ``serve.ServeResult``."""
+    from repro_torch.checkpoint import ExponentialBackoff, FaultPlan
+    from repro_torch.core import morphology, network
+    from repro_torch.core.cell import CellModel
+    from repro_torch.serve import SimService, TenantRequest
+
+    model = CellModel(morphology.soma_only(), device=args.device)
+    net = network.make_network(args.n, k_in=4, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    fault = None
+    if args.poison_tenant >= 0:
+        fault = FaultPlan(poison_at_round=args.poison_round,
+                          poison_tenant=args.poison_tenant, poison_lane=0)
+    svc = SimService(model, net, t_end=args.t_end, lanes=args.lanes,
+                     queue_cap=args.queue_cap,
+                     backoff=ExponentialBackoff(max_retries=args.max_retries),
+                     qos_caps={0: max(2, args.n // 4)}, fault=fault,
+                     ckpt_dir=args.ckpt_dir or None,
+                     checkpoint_every=args.checkpoint_every,
+                     runner_kwargs={"device": args.device})
+    for rid in range(args.tenants):
+        svc.submit(TenantRequest(
+            rid=rid, iinj=float(0.14 + 0.03 * rng.random()),
+            qos=int(rng.integers(0, 2))))
+    t0 = time.perf_counter()
+    res = svc.run()
+    dt = time.perf_counter() - t0
+    print(f"served {res.submitted} tenants in {res.rounds} rounds "
+          f"({dt:.2f}s): {res.completed} completed, {res.evicted} evicted, "
+          f"{res.rejected} rejected ({res.shed} shed), "
+          f"{res.retried} retries / {res.quarantines} quarantines")
+    w = res.health["admission_wait_rounds"]
+    print(f"admission wait: mean {w['mean']:.1f} / max {w['max']} rounds; "
+          f"straggler: {res.health['straggler']['flagged']} flagged of "
+          f"{res.health['straggler']['recorded']}")
+    return res
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sim", action="store_true",
-                    help="serve FAP simulations (not ported yet)")
+                    help="serve FAP simulations (repro_torch.serve) "
+                    "instead of the LM")
+    # LM mode
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
@@ -165,15 +216,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    # simulation mode
+    ap.add_argument("--n", type=int, default=12, help="neurons per tenant")
+    ap.add_argument("--tenants", type=int, default=8)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--t-end", type=float, default=6.0)
+    ap.add_argument("--queue-cap", type=int, default=8)
+    ap.add_argument("--max-retries", type=int, default=3)
+    ap.add_argument("--poison-tenant", type=int, default=-1,
+                    help="rid to poison (FaultPlan demo; -1 = off)")
+    ap.add_argument("--poison-round", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.sim:
-        raise NotImplementedError("the simulation service (--sim) is not "
-                                  "ported yet (ROADMAP item 11)")
-    lm_main(args)
+        sim_main(args)
+    else:
+        lm_main(args)
     return 0
 
 

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import events as ev
 from repro_torch.core.detmath import fixed_sum
 from repro_torch.kernels.event_wheel import ops as ew_ops
 
@@ -128,7 +129,7 @@ def _write(eq: WheelQueue, ok, row, col, t_ev, w_ampa, w_gaba, valid):
     new_t[r, c] = t_ev[ok]
     new_a[r, c] = w_ampa[ok]
     new_g[r, c] = w_gaba[ok]
-    dropped = eq.dropped + (valid & ~ok).sum().to(torch.int32)
+    dropped = ev.add_lost(eq.dropped, valid & ~ok, row, eq.t.shape[0])
     return WheelQueue(new_t, new_a, new_g, dropped)
 
 

@@ -84,7 +84,8 @@ def test_unknown_modes_and_unported_knobs():
         with pytest.raises(ValueError):
             mk(**bad)
     run = mk(batch="compact")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the robustness knobs are ported; checkpoints need a directory
+    with pytest.raises(ValueError, match="ckpt_dir"):
         run(checkpoint_every=4)
     with pytest.raises(NotImplementedError, match="later slice"):
         run.tenant_round(run.init_carry(), IINJ, True)

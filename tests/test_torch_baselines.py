@@ -186,11 +186,15 @@ def test_bsp_vardt_compact_equals_dense_in_the_port(vardt_port, dense,
 
 
 def test_unported_run_knobs_raise():
+    """The fixed-step runners' ``run()`` takes no knob, as JAX's; 2b's
+    robustness knobs are ported and want a checkpoint directory."""
     _, tm = _models("soma")
     _, tn = _nets()
-    for mk in (tbsp.make_bsp_fixed_runner, tbsp.make_bsp_vardt_runner,
-               tfap.make_fap_fixed_runner):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for mk in (tbsp.make_bsp_fixed_runner, tfap.make_fap_fixed_runner):
+        with pytest.raises(TypeError):
             mk(tm, tn, 0.1, 1.0, device="cpu")(checkpoint_every=4)
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        tbsp.make_bsp_vardt_runner(tm, tn, 0.1, 1.0,
+                                   device="cpu")(checkpoint_every=4)
     with pytest.raises(ValueError, match="batch"):
         tbsp.make_bsp_vardt_runner(tm, tn, 0.1, 1.0, batch="x", device="cpu")

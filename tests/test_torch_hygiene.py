@@ -141,7 +141,8 @@ CORE_FILES = [p for p in sorted((ROOT / "src" / "repro_torch" / "core")
     + [p for p in sorted((ROOT / "src" / "repro_torch" / "kernels")
                          .glob("*/ref.py")) if p.parent.name != "attention"] \
     + [ROOT / "src" / "repro_torch" / "distributed" / f
-       for f in ("fap_spmd.py", "exchange.py", "group.py")]
+       for f in ("fap_spmd.py", "exchange.py", "group.py")] \
+    + sorted((ROOT / "src" / "repro_torch" / "serve").glob("*.py"))
 DEVICE_DEPENDENT = {"exp", "expm1", "log", "pow", "sqrt", "mean", "sum"}
 
 
@@ -199,6 +200,21 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fap_spmd.run_fap_spmd(model, net, 0.1, 1.0,
                               group.Group(0, 1, "gloo", "cuda"))
+
+
+def test_robustness_and_service_entry_points_default_to_the_card(no_cuda):
+    """The simulation service and ``--sim`` build their runner on the
+    card unless told otherwise."""
+    from repro_torch.serve import SimService
+    model = CellModel(morphology.soma_only(), device="cpu")
+    net = network.make_network(8, k_in=2, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SimService(model, net, t_end=1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--sim", "--tenants", "1", "--n", "8"])
+    svc = SimService(model, net, t_end=1.0, lanes=1,
+                     runner_kwargs={"device": "cpu"})
+    assert svc._carry[0].t.device.type == "cpu"
 
 
 def test_lm_entry_points_default_to_the_card(no_cuda):

@@ -282,7 +282,7 @@ def test_lm_main_serves_every_request(capsys):
 
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "rwkv6-7b",
                                   "zamba2-7b", "whisper-base"])
-def test_unported_families_and_training_raise(name):
+def test_unported_families_and_training_raise(name, monkeypatch):
     cfg = t_configs.get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         t_lm.init_params(cfg, 0, device="cpu")
@@ -290,5 +290,7 @@ def test_unported_families_and_training_raise(name):
         t_lm.make_decode_state(cfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         t_lm.train_step(cfg, None, None, None, 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    # --sim is ported: it runs on the card unless asked for the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_serve.main(["--sim"])
