@@ -77,9 +77,12 @@ Phases, each reported on its own lines:
      B=4, S=2048, H=9, Hkv=3, D=64; decode at kv_len 1, 37, 255, 256, 2048
      and 4096), decode with several query rows, ragged Sq and Skv,
      bidirectional, groups 1, 3 and 8, D 16/64/128 (deepseek-7b's and
-     qwen2-72b's heads); times of the prefill and of decode at kv_len 256
-     and 4096 (bf16 in), and of the float32 kernels at the prefill and at
-     decode kv_len 4096 (printed only), beside the plain version,
+     qwen2-72b's heads) and zamba2-7b's D = 112 (prefill B=2, S=128,
+     H=Hkv=32; decode B=4 at kv_len 1, 37, 256); times of the prefill and
+     of decode at kv_len 256 and 4096 (bf16 in), of zamba2's D = 112
+     prefill and decode at kv_len 256 (bf16 in), and of the float32
+     kernels at the prefill and at decode kv_len 4096 (printed only),
+     beside the plain version,
      ``scaled_dot_product_attention`` (a yardstick only) and the bound;
      the decode kernels' device time by kv splits;
  16. the LM serve path at full width: smollm-135m on the card from a
@@ -136,10 +139,26 @@ Phases, each reported on its own lines:
      N=256, 5 ms on four card ranks (sparse, compact, incremental
      horizon) killed and resumed on four ranks and on two (the elastic
      reseed), bitwise the uninterrupted run;
+ 25. the other LM families at full width: whisper-base, rwkv6-7b,
+     zamba2-7b and qwen3-moe-30b-a3b (16 of its 48 layers: its experts do
+     not fit the card at 48), weights drawn on the card: ``lm.prefill`` of
+     2 x 128 tokens (whisper also 2 x 1500 frames) and
+     ``serve.serve_requests`` of 4 requests, 4 slots, max-new 8, cache 64:
+     every request served, no non-finite logit, peak memory below 75 GiB,
+     K10 launched exactly as the family needs it (per decode step /
+     prefill: qwen3-moe 16 / 16, zamba2 13 / 13 at D = 112, whisper 12 /
+     18, rwkv6 0 / 0), all by the decode / prefill kernel; ms per step,
+     tok/s, prefill ms, init seconds, peak memory;
+ 26. phase 17 on the reduced qwen3-moe-30b-a3b, arctic-480b, rwkv6-7b,
+     zamba2-7b and whisper-base, float32 and bf16 compute: card and CPU
+     logits within ``LM_TOL``, greedy picks differing only at top-2 ties,
+     every MoE layer's expert assignments and keep masks equal on both
+     devices (in bf16 compute apart only at ties of the probabilities,
+     and the ranks such a tie moves);
  21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
-     many full-width decode steps of the serve path (device busy share,
-     busiest kernels).
+     many full-width decode steps of the serve path and of phase 25's
+     four families (device busy share, busiest kernels).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
@@ -251,6 +270,12 @@ ATTN_TOL = 1e-5
 # an activation that lands on the other side flips by 2**-8 of it, and
 # such flips compound over the layers and the logit GEMM).
 LM_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+# MoE routing, card against CPU (phase 26): equal in float32 compute; in
+# bf16 compute a token may take other experts only where the CPU's
+# probabilities of them lie within 2**-9 of its largest -- the half-ulp of
+# one bf16 rounding of the router's input landing on the other side.  The
+# phase prints the widest gap it saw.
+ROUTE_TIE = {"float32": 0.0, "bfloat16": 2.0 ** -9}
 
 
 def say(phase, msg):
@@ -1440,12 +1465,24 @@ ATTN_CASES = [  # name, B, H, Hkv, Sq, Skv, D, causal, kv_len
     ("deepseek-7b D=128", 1, 32, 32, 2048, 2048, 128, True, None),
     ("qwen2-72b D=128", 1, 64, 8, 2048, 2048, 128, True, None),
     ("qwen2-72b decode kv_len=4096", 2, 64, 8, 1, 4096, 128, True, 4096),
+    ("zamba2-7b D=112 prefill", 2, 32, 32, 128, 128, 112, True, None),
+    ("zamba2-7b D=112 decode kv_len=1", 4, 32, 32, 1, 256, 112, True, 1),
+    ("zamba2-7b D=112 decode kv_len=37", 4, 32, 32, 1, 256, 112, True, 37),
+    ("zamba2-7b D=112 decode kv_len=256", 4, 32, 32, 1, 256, 112, True,
+     256),
+    # D = 112 past the small decode instantiations: 8 and 32 rows (the
+    # latter two bf16 row tiles, and split over the cache)
+    ("decode D=112 group 8 kv_len=300", 1, 32, 4, 1, 320, 112, True, 300),
+    ("decode D=112 group 8 Sq=4 kv_len=555", 1, 32, 4, 4, 600, 112, True,
+     555),
 ]
 # the shapes timed in phase 15: (row, case) -- the serve model's prefill,
 # its decode step against a full 256-slot cache, and a 4096-row cache
 ATTN_TIMED = (("flash_attention_prefill", "prefill"),
               ("flash_attention_decode", "decode kv_len=256"),
-              ("decode kv_len=4096", "decode kv_len=4096"))
+              ("decode kv_len=4096", "decode kv_len=4096"),
+              ("prefill D=112", "zamba2-7b D=112 prefill"),
+              ("decode D=112", "zamba2-7b D=112 decode kv_len=256"))
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 #                                (NVIDIA data sheet)
 
@@ -2342,6 +2379,368 @@ def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=5.0, lanes=3, tenants=5,
                 wall_s=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------- phase 25 --
+# The four families ported last, served at full width.  qwen3-moe keeps 16
+# of its 48 layers: its 128 experts take 2.4 GB a layer in float32, so 48
+# layers (117 GB) do not fit the card's 80 GB.
+FAMILY_ARCHS = ("whisper-base", "rwkv6-7b", "zamba2-7b", "qwen3-moe-30b-a3b")
+FAMILY_DEPTH = {"qwen3-moe-30b-a3b": 16}
+# K10 launches per decode step and in the prefill, and the head size
+# each runs at: the MoE's attention once a layer (GQA group 8); zamba2's
+# shared block once per application, 81 // 6 = 13; whisper's decoder
+# self- and cross-attention per step, and its 6 encoder layers on top in
+# the prefill; RWKV6 attends to nothing.
+FAMILY_K10 = {"qwen3-moe-30b-a3b": (16, 16, 64), "zamba2-7b": (13, 13, 112),
+              "whisper-base": (12, 18, 64), "rwkv6-7b": (0, 0, None)}
+FAMILY_PREFILL = (2, 128)          # prompts x tokens of lm.prefill
+FAMILY_SERVE = dict(requests=4, slots=4, max_new=8, cache_len=64)
+PEAK_GIB = 75.0
+
+
+class _AttnShapes:
+    """Records the (q, k) shapes of every K10 call, without copies; the
+    wrapped dispatcher still launches and counts as before."""
+
+    def __init__(self):
+        from repro_torch.kernels.attention import ops as a_ops
+        self.ops, self.real, self.shapes = a_ops, a_ops.flash_attention, []
+
+    def __enter__(self):
+        def rec(q, k, v, **kw):
+            self.shapes.append((tuple(q.shape), tuple(k.shape)))
+            return self.real(q, k, v, **kw)
+
+        self.ops.flash_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def _family_cfg(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in FAMILY_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_DEPTH[arch])
+    return cfg
+
+
+def _n_params(tree):
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_n_params(v) for v in tree)
+    return tree.numel()
+
+
+def _k10_gate(tag, counts, shapes, want, kernel, D):
+    """K10 launched ``want`` times, all by ``kernel``, at head size D."""
+    bad = [s for s in shapes if s[0][-1] != D]
+    if counts["flash_attention"] != want or \
+            counts[f"flash_attention_{kernel}"] != want or bad:
+        raise AssertionError(f"{tag}: K10 launched {counts['flash_attention']}"
+                             f" times ({counts[f'flash_attention_{kernel}']} "
+                             f"by the {kernel} kernel), not {want}; head "
+                             f"sizes {sorted({s[0][-1] for s in shapes})}")
+
+
+def phase_families(dev, smi):
+    """Whisper-base, rwkv6-7b, zamba2-7b and qwen3-moe-30b-a3b (16 of 48
+    layers) at published width, weights drawn on the card from a seeded
+    CUDA generator: ``lm.prefill`` of 2 x 128 seeded tokens (whisper also
+    [2, 1500, 512] seeded frames), then ``serve.serve_requests`` of the
+    requests ``lm_main --requests 4 --slots 4 --max-new 8 --cache-len 64
+    --seed 0`` serves.  Each model is freed before the next."""
+    import gc
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = _family_cfg(arch)
+        per_step, in_prefill, D = FAMILY_K10[arch]
+        cut = f", {cfg.n_layers} of its 48 layers (128 experts x 2.4 GB a " \
+            "layer in float32: 48 layers do not fit 80 GB)" \
+            if arch in FAMILY_DEPTH else f", all {cfg.n_layers} layers"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lm.init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n = _n_params(params)
+        say("families", f"{cfg.name} [{cfg.source}]: family {cfg.family}"
+            f"{cut}, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+            f"{cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}; {n} params ({cfg.param_dtype}, compute "
+            f"{cfg.compute_dtype}), drawn on the card in {t_init:.2f} s")
+        B, S = FAMILY_PREFILL
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((B, cfg.enc_frames, cfg.d_model),
+                                          generator=gen, device=dev)
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _AttnShapes() as pre_shapes:
+            logits = lm.prefill(cfg, params, batch, device=dev)
+            torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        pre = build.launches()
+        if tuple(logits.shape) != (B, 1, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: prefill logits "
+                                 f"{tuple(logits.shape)} are not finite "
+                                 "[B, 1, V]")
+        _k10_gate(f"{arch} prefill", pre, pre_shapes.shapes, in_prefill,
+                  "prefill", D)
+        del logits, batch
+        build.reset_launches()
+        with _AttnShapes() as shapes:
+            res = serve.serve_requests(
+                cfg, params, serve.make_queue(cfg, FAMILY_SERVE["requests"],
+                                              0),
+                FAMILY_SERVE["slots"], FAMILY_SERVE["max_new"],
+                FAMILY_SERVE["cache_len"], device=dev)
+        counts = build.launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = res.decode_steps
+        if res.done != FAMILY_SERVE["requests"] or res.nonfinite_steps:
+            raise AssertionError(f"{arch}: served {res.done} requests, "
+                                 f"{res.nonfinite_steps} steps with a "
+                                 "non-finite logit")
+        _k10_gate(f"{arch} serve", counts, shapes.shapes, steps * per_step,
+                  "decode", D)
+        if peak >= PEAK_GIB:
+            raise AssertionError(f"{arch}: peak memory {peak:.2f} GiB")
+        out[arch] = dict(
+            layers=cfg.n_layers, params=n, init_s=t_init,
+            prefill_ms=t_pre * 1e3, prefill_k10=pre["flash_attention"],
+            requests=res.done, tokens=res.n_tokens, decode_steps=steps,
+            prefill_steps=res.prefill_steps, seconds=res.seconds,
+            ms_per_step=res.seconds / steps * 1e3,
+            tok_per_s=res.n_tokens / res.seconds,
+            k10_per_step=counts["flash_attention"] / steps, peak_gib=peak,
+            gpu=smi)
+        say("families", f"{cfg.name}: prefill {B} x {S} in {t_pre * 1e3:.1f}"
+            f" ms ({pre['flash_attention']} K10 launches"
+            f"{'' if D is None else ', all by the prefill kernel'}); served {res.done} requests, {res.n_tokens} tokens, "
+            f"{steps} decode steps ({res.prefill_steps} prefill) at "
+            f"{out[arch]['ms_per_step']:.2f} ms each = "
+            f"{out[arch]['tok_per_s']:.1f} tok/s, {per_step} K10 decode-"
+            f"kernel launches a step{'' if D is None else f' at D={D}'}; "
+            f"init {t_init:.2f} s; peak memory {peak:.2f} GiB; on {smi}")
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 26 --
+FAMILY_CPU_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b", "rwkv6-7b",
+                    "zamba2-7b", "whisper-base")
+
+
+class _RouteRecorder:
+    """Records every MoE layer's routing (probabilities, expert ids, the
+    dispatch entries and keep masks, on the host) while it runs."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.seen = moe, moe.route, []
+
+    def __enter__(self):
+        def rec(cfg, mp, xt):
+            r = self.real(cfg, mp, xt)
+            self.seen.append({k: getattr(r, k).cpu() for k in
+                              ("probs", "expert", "e_s", "t_s", "keep")})
+            return r
+
+        self.moe.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def _kept(r, E):
+    """[G, Tg, E]: the experts each token reaches past the capacity."""
+    G, Tg, _ = r["expert"].shape
+    m = torch.zeros((G, Tg, E), dtype=torch.bool)
+    g = torch.arange(G)[:, None].expand_as(r["e_s"])
+    m[g, r["t_s"], r["e_s"]] = r["keep"]
+    return m
+
+
+def _same_routes(tag, card, cpu, tie):
+    """(routings, routings equal, tokens whose experts differ, the widest
+    of their probability gaps over the token's largest): every MoE
+    routing of the card against the CPU's.  With ``tie`` 0 they must be
+    equal.  Otherwise a token may take other experts on the two devices
+    only where the CPU's probabilities of them tie within ``tie`` of its
+    largest, and a token may keep other experts past the capacity only in
+    a group where such a tie moved the ranks."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{tag}: {len(card)} MoE routings on the card, "
+                             f"{len(cpu)} on the CPU")
+    equal = flips = 0
+    widest = 0.0
+    for a, b in zip(card, cpu):
+        if torch.equal(a["expert"], b["expert"]) and \
+                torch.equal(a["keep"], b["keep"]):
+            equal += 1
+            continue
+        if not tie:
+            raise AssertionError(f"{tag}: MoE expert assignments or keep "
+                                 "masks differ between the card and the CPU")
+        chose = (a["expert"].sort(-1).values !=
+                 b["expert"].sort(-1).values).any(-1)
+        for g, t in chose.nonzero().tolist():
+            p = b["probs"][g, t]
+            gap = (p[a["expert"][g, t]].sort().values -
+                   p[b["expert"][g, t]].sort().values).abs().max()
+            widest = max(widest, float(gap) / float(p.max()))
+            if float(gap) > tie * float(p.max()):
+                raise AssertionError(f"{tag}: the card routed token {t} of "
+                                     f"group {g} to other experts than the "
+                                     f"CPU, {float(gap):.3e} apart in its "
+                                     "probabilities")
+        E = b["probs"].shape[-1]
+        moved = (_kept(a, E) != _kept(b, E)).any(-1) & \
+            ~chose.any(-1, keepdim=True)
+        if bool(moved.any()):
+            raise AssertionError(f"{tag}: keep masks differ in a group where "
+                                 "no token took other experts")
+        flips += int(chose.sum())
+    return len(card), equal, flips, widest
+
+
+def phase_families_card_vs_cpu(dev, requests=6, slots=3, max_new=8,
+                               cache_len=48, prompt=(2, 40)):
+    """Phase 17 on the reduced configs of qwen3-moe-30b-a3b, arctic-480b,
+    rwkv6-7b, zamba2-7b and whisper-base, with the same weights, in float32
+    and in bf16 compute: the card's prefill and serve logits against the
+    CPU's within ``LM_TOL``, the CPU replaying the card's picks and its own
+    greedy picks differing only where its top two logits lie within the
+    tolerance; every MoE layer's expert assignments and keep masks equal
+    on both devices in float32, and in bf16 compute apart only at ties of
+    the probabilities within ``LM_TOL`` (a bf16 rounding of the router's
+    input that lands on the other side moves a near-tie: ``_same_routes``);
+    K10 launched by the compute dtype's kernels only."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    out = {}
+    for arch in FAMILY_CPU_ARCHS:
+        for cd in ("float32", "bfloat16"):
+            tag = f"reduced {arch} {cd}"
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      compute_dtype=cd)
+            params = lm.init_params(cfg, 0, device=dev)
+            cpu_params = lm.init_params(cfg, 0, device="cpu")
+            g = torch.Generator().manual_seed(1)
+            batch = {"tokens": torch.randint(0, cfg.vocab, prompt,
+                                             generator=g)}
+            if cfg.family == "audio":
+                batch["frames"] = torch.randn(
+                    (prompt[0], cfg.enc_frames, cfg.d_model), generator=g)
+            build.reset_launches()
+            with _RouteRecorder() as card_pre:
+                got = lm.prefill(cfg, params, batch, device=dev)
+            counts = dict(build.launches())
+            with _RouteRecorder() as cpu_pre:
+                want = lm.prefill(cfg, cpu_params, batch, device="cpu")
+            pre_tol = LM_TOL[cd] * (1.0 if cd == "float32" else
+                                    float(want.abs().max()))
+            pre_err = float((got.cpu() - want).abs().max())
+            if not pre_err <= pre_tol:
+                raise AssertionError(f"{tag}: card and CPU prefill logits "
+                                     f"differ by {pre_err:.3e} > "
+                                     f"{pre_tol:.3e}")
+            tie = ROUTE_TIE[cd]
+            routes = _same_routes(f"{tag} prefill", card_pre.seen,
+                                  cpu_pre.seen, tie)
+            seen = []
+
+            def record(logits):
+                seen.append(logits.cpu())
+                return serve.greedy(logits)
+
+            queue = serve.make_queue(cfg, requests, 0)
+            build.reset_launches()
+            with _RouteRecorder() as card_routes:
+                card = serve.serve_requests(cfg, params, queue, slots,
+                                            max_new, cache_len, device=dev,
+                                            pick=record)
+            for k, v in build.launches().items():
+                counts[k] += v
+            tol = LM_TOL[cd] * (1.0 if cd == "float32" else
+                                max(float(x.abs().max()) for x in seen))
+            steps = iter(seen)
+            worst, differ = 0.0, 0
+
+            def replay(logits):
+                nonlocal worst, differ
+                theirs = next(steps)
+                worst = max(worst, float((theirs - logits).abs().max()))
+                if worst > tol:
+                    raise AssertionError(f"{tag}: card and CPU decode logits "
+                                         f"differ by {worst:.3e} > "
+                                         f"{tol:.3e}")
+                pick = serve.greedy(theirs)
+                for b in np.flatnonzero(pick != serve.greedy(logits)):
+                    top2 = torch.topk(logits[b], 2).values
+                    if float(top2[0] - top2[1]) > tol:
+                        raise AssertionError(
+                            f"{tag}: card picked {pick[b]}, the CPU's top "
+                            f"logit leads by {float(top2[0] - top2[1]):.3e}")
+                    differ += 1
+                return pick
+
+            with _RouteRecorder() as cpu_routes:
+                cpu = serve.serve_requests(cfg, cpu_params, queue, slots,
+                                           max_new, cache_len, device="cpu",
+                                           pick=replay)
+            if next(steps, None) is not None or card.done != requests or \
+                    card.nonfinite_steps or cpu.nonfinite_steps:
+                raise AssertionError(f"{tag}: the card and CPU runs diverged")
+            more = _same_routes(f"{tag} serve", card_routes.seen,
+                                cpu_routes.seen, tie)
+            routes = tuple(a + b for a, b in zip(routes[:3], more[:3])) + \
+                (max(routes[3], more[3]),)
+            kinds = ("f32_decode", "f32_prefill") if cd == "float32" else \
+                ("decode", "prefill")
+            k10 = {k: counts[f"flash_attention_{k}"] for k in kinds}
+            if sum(k10.values()) != counts["flash_attention"] or \
+                    (cfg.family != "ssm") != (counts["flash_attention"] > 0):
+                raise AssertionError(f"{tag}: K10 launches {counts}")
+            out[f"{arch} {cd}"] = dict(
+                prefill_max_abs_err=pre_err, prefill_tol=pre_tol,
+                steps=card.decode_steps, max_abs_err=worst, tol=tol,
+                picks_differed=differ, picks=len(seen) * slots,
+                moe_routings=routes[0], moe_routings_equal=routes[1],
+                moe_tie_flips=routes[2], moe_tie_widest=routes[3], k10=k10)
+            say("families-vs-cpu", f"{tag}: prefill {prompt[0]} x "
+                f"{prompt[1]} logits max abs err {pre_err:.3e} (tol "
+                f"{pre_tol:.3e}); {requests} requests, {card.decode_steps} "
+                f"decode steps, logits max abs err {worst:.3e} (tol "
+                f"{tol:.3e}); CPU greedy picks differed on {differ} of "
+                f"{len(seen) * slots}, each within the tolerance of a top-2 "
+                f"tie; MoE routings {routes[1]} of {routes[0]} equal on both "
+                f"devices, {routes[2]} token(s) routed apart at ties of the "
+                f"probabilities (widest {routes[3]:.3e} of the largest, "
+                f"tolerance {tie}); K10 launches {k10}")
+    return out
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -2380,16 +2779,19 @@ def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
             f"{e.self_device_time_total / n_rounds / 1e3:8.3f} ms/round")
 
 
-def phase_profile_serve(dev, n_steps, t_pos=128):
+def phase_profile_serve(dev, n_steps, t_pos=128, arch=LM_ARCH):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
-    ``n_steps`` decode steps of smollm-135m at the serve CLI's batch and
-    cache, from ``t_pos`` on."""
+    ``n_steps`` decode steps of ``arch`` (smollm-135m, or a phase-25
+    family at its phase-25 depth) at the serve CLI's batch and cache,
+    from ``t_pos`` on."""
+    import gc
+
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.models import lm
-    cfg = get_config(LM_ARCH)
-    params = lm.init_params(cfg, 0, device=dev)
+    cfg = _family_cfg(arch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
     state = lm.make_decode_state(cfg, 4, 256, device=dev)
     tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
     for t in range(t_pos):
@@ -2405,7 +2807,7 @@ def phase_profile_serve(dev, n_steps, t_pos=128):
     timed = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     ev = [e for e in timed if str(e.device_type).endswith("CUDA")] or timed
     dev_us = sum(e.self_device_time_total for e in ev)
-    say("profile", f"serve decode steps {t_pos}..{t_pos + n_steps - 1}: "
+    say("profile", f"{arch} decode steps {t_pos}..{t_pos + n_steps - 1}: "
         f"wall {wall_us / n_steps / 1e3:.2f} ms per step (profiled), device "
         f"{dev_us / n_steps / 1e3:.3f} ms per step, busy share "
         f"{dev_us / wall_us:.3f}, "
@@ -2413,6 +2815,9 @@ def phase_profile_serve(dev, n_steps, t_pos=128):
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
         say("profile", f"  {e.key[:60]:60s} {e.count / n_steps:8.0f}/step "
             f"{e.self_device_time_total / n_steps / 1e3:8.3f} ms/step")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -2463,12 +2868,16 @@ def main(argv=None):
     ckpt = phase_checkpoint(dev, args.t_end, main_stats, smi)
     service = phase_service(dev, main_stats, smi)
     robust_vs_cpu = phase_robust_card_vs_cpu(dev, smi)
+    families = phase_families(dev, smi)
+    families_vs_cpu = phase_families_card_vs_cpu(dev)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
                       wheel="auto", **dict(ACTIVE, batch_cap=act["batch_cap"],
                                            spike_cap=act["spike_cap"]))
         phase_profile_serve(dev, args.profile)
+        for arch in FAMILY_ARCHS:
+            phase_profile_serve(dev, args.profile, t_pos=16, arch=arch)
     launches.update({k: act_launches[k] for k in ACTIVE_PATH
                      if k not in DENSE_PATH})
     launches.update({k: base_launches[k] for k in BASELINE_PATH})
@@ -2492,7 +2901,8 @@ def main(argv=None):
              "lm_card_vs_cpu": lm_vs_cpu, "plastic_schur": plastic,
              "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu,
              "checkpoint": ckpt, "service": service,
-             "robust_card_vs_cpu": robust_vs_cpu},
+             "robust_card_vs_cpu": robust_vs_cpu, "families": families,
+             "families_card_vs_cpu": families_vs_cpu},
             indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

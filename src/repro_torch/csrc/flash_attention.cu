@@ -50,7 +50,10 @@
 // row); the P V step stops at the tile's last column below it.  Every
 // tensor is read through its strides, so the model's [B, S, H, D]
 // activations and [B, S, Hkv, D] cache go in without a transposed copy,
-// and ragged Sq and Skv are masked here rather than padded.
+// and ragged Sq and Skv are masked here rather than padded.  Head sizes
+// 16, 64 and 128 have their own instantiations; 112 (zamba2-7b's) runs the
+// 128 body, K and V zero-filled past column 112, q . k over the 112 real
+// columns, the scale 1/sqrt(112), and only the 112 columns stored.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,9 +87,9 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Rows first .. first + 63 of a [rows, D] view into a [64][D + 4] tile;
-// rows at and past n_valid are zero-filled.
-template <int D>
+// Rows first .. first + 63 of a [rows, DV] view into a [64][D + 4] tile;
+// rows at and past n_valid, and columns at and past DV, are zero-filled.
+template <int D, int DV>
 __device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long rs, int first,
                                           int n_valid) {
@@ -94,8 +97,9 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base,
 #pragma unroll
   for (int idx = threadIdx.x; idx < BK * CPR; idx += THREADS) {
     const int r = idx / CPR, c = idx % CPR;
-    const bool in = first + r < n_valid;
-    const float* src = base + (long long)(in ? first + r : 0) * rs + c * 4;
+    const bool in = first + r < n_valid && c * 4 < DV;
+    const float* src =
+        base + (long long)(in ? first + r : 0) * rs + (in ? c * 4 : 0);
     cp_async16(smem_u32(dst + r * DS + c * 4), src, in);
   }
 }
@@ -104,7 +108,10 @@ __device__ __forceinline__ float component(const float4& x, int e) {
   return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
 }
 
-template <int D>
+// D: the tile's row of values (16, 64 or 128); DV <= D: the head size.
+// A head size of 112 runs the D = 128 body: its last 16 columns are
+// zero-filled on load, add nothing to q . k, and are never stored.
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float* __restrict__ q, long long qsb, long long qsh, long long qss,
     const float* __restrict__ k, long long ksb, long long ksh, long long kss,
@@ -129,12 +136,13 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   const float* kp = k + b * ksb + hk * ksh;
   const float* vp = v + b * vsb + hk * vsh;
 
-  load_tile<D>(Ks, kp, kss, 0, kv_end);
-  load_tile<D>(Vs, vp, vss, 0, kv_end);
+  load_tile<D, DV>(Ks, kp, kss, 0, kv_end);
+  load_tile<D, DV>(Vs, vp, vss, 0, kv_end);
   cp_async_commit();
-  // Q transposed, once: consecutive threads take consecutive rows
+  // Q transposed, once (its DV columns): consecutive threads take
+  // consecutive rows
   const float* qp = q + b * qsb + h * qsh;
-  for (int idx = threadIdx.x; idx < BQ * (D / 4); idx += THREADS) {
+  for (int idx = threadIdx.x; idx < BQ * (DV / 4); idx += THREADS) {
     const int r = idx % BQ, x = idx / BQ, row = q0 + r;
     const float4 qq =
         row < Sq ? *reinterpret_cast<const float4*>(qp + (long long)row * qss +
@@ -159,8 +167,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1, j0 = j * BK;
     if (j + 1 < n_tiles) {
-      load_tile<D>(Ks + (st ^ 1) * BK * DS, kp, kss, j0 + BK, kv_end);
-      load_tile<D>(Vs + (st ^ 1) * BK * DS, vp, vss, j0 + BK, kv_end);
+      load_tile<D, DV>(Ks + (st ^ 1) * BK * DS, kp, kss, j0 + BK, kv_end);
+      load_tile<D, DV>(Vs + (st ^ 1) * BK * DS, vp, vss, j0 + BK, kv_end);
     }
     cp_async_commit();
     cp_async_wait1();
@@ -175,7 +183,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 #pragma unroll
       for (int n = 0; n < TN; ++n) s[i][n] = 0.f;
 #pragma unroll
-    for (int x = 0; x < D / 4; ++x) {
+    for (int x = 0; x < DV / 4; ++x) {
       float4 kk[TN];
 #pragma unroll
       for (int n = 0; n < TN; ++n)
@@ -284,14 +292,15 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     } else {
 #pragma unroll
       for (int g = 0; g < DN / 4; ++g)
-        *reinterpret_cast<float4*>(op + g * 64 + tx * 4) = make_float4(
-            acc[i][4 * g] / den, acc[i][4 * g + 1] / den,
-            acc[i][4 * g + 2] / den, acc[i][4 * g + 3] / den);
+        if (g * 64 + tx * 4 < DV)
+          *reinterpret_cast<float4*>(op + g * 64 + tx * 4) = make_float4(
+              acc[i][4 * g] / den, acc[i][4 * g + 1] / den,
+              acc[i][4 * g + 2] / den, acc[i][4 * g + 3] / den);
     }
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch(const void* q, long long qsb, long long qsh, long long qss,
            const void* k, long long ksb, long long ksh, long long kss,
            const void* v, long long vsb, long long vsh, long long vss,
@@ -300,7 +309,7 @@ int launch(const void* q, long long qsb, long long qsh, long long qss,
            cudaStream_t stream) {
   // K and V rings, Q^T, P^T
   const int smem = (4 * BK * (D + 4) + D * BQ + BK * PS) * (int)sizeof(float);
-  auto kernel = flash_attention_kernel<D>;
+  auto kernel = flash_attention_kernel<D, DV>;
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -309,7 +318,7 @@ int launch(const void* q, long long qsb, long long qsh, long long qss,
     sized = true;
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)DV));   // the head size's
   kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, qsb, qsh, qss, (const float*)k, ksb, ksh, kss,
       (const float*)v, vsb, vsh, vss, (float*)o, osb, osh, oss, H, H / Hkv,
@@ -338,6 +347,7 @@ extern "C" int flash_attention_launch(
   switch (D) {
     case 16: return launch<16>(FA_ARGS);
     case 64: return launch<64>(FA_ARGS);
+    case 112: return launch<128, 112>(FA_ARGS);
     case 128: return launch<128>(FA_ARGS);
   }
 #undef FA_ARGS

@@ -43,6 +43,11 @@
 // splits, scratch and merge kernel, with the group's rows staged once in
 // shared memory and each tile's scores, softmax and P V shared out over
 // the block's threads (see the kernel).
+//
+// Head sizes 16, 64, 112 (zamba2-7b's) and 128 each have their own
+// instantiation of both kernels: 112 is 7 k-steps of 16 and 14 n-tiles of
+// 8, and its rows (224 or 448 bytes, padded by 16) keep the 16-byte
+// copies aligned and the fragment reads on distinct banks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -354,7 +359,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_merge_kernel(
 //           rescale alpha kept in shared memory;
 //   P V     thread t owns dims 4 (t % (D/4)) .. + 3 of the rows t / (D/4),
 //           + 128 / (D/4), ...: acc *= alpha, then acc += p v over the
-//           tile's columns below kv_end, p as float4 from shared memory.
+//           tile's columns below kv_end, p as float4 from shared memory
+//           (at D = 112, 128 threads are 4 rows of 28 float4 and 16 more,
+//           which own no row).
 // SMALL (R <= 4: a serve step of a GQA group of up to 4, smollm-135m's 3
 // among them) scores two rows at a time and gives a thread at most one row
 // of acc, so that no thread issues predicated-off products for rows it
@@ -373,6 +380,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_f32_kernel(
   constexpr int DS = D + 4;         // padded row of a shared tile
   constexpr int D4 = D / 4;         // float4 chunks of a row
   constexpr int RPH = THREADS / D4; // row phases of the P V step
+  const bool owner = threadIdx.x < RPH * D4;   // owns rows of acc
   constexpr int RB = SMALL ? 2 : 4;  // query rows a thread scores at once
   constexpr int NJ = SMALL ? 1 : (MAX_ROWS + RPH - 1) / RPH;  // acc rows
   extern __shared__ uint4 smem[];
@@ -497,7 +505,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_f32_kernel(
     // them, or V's zero-filled rows are)
     const int nc4 = (min(BK, kv_end - j * BK) + 3) / 4;
     const float4* vt = reinterpret_cast<const float4*>(Vt) + d4;
-    if (!SMALL || rph < R) {
+    if (owner && (!SMALL || rph < R)) {
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
         const int r = rph + RPH * jj;
@@ -549,7 +557,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_f32_kernel(
 #pragma unroll
   for (int jj = 0; jj < NJ; ++jj) {
     const int r = rph + RPH * jj;
-    if (r >= R) continue;
+    if (!owner || r >= R) continue;
     const float4 a = acc[jj];
     if (nsplit == 1) {
       const float den = fmaxf(Ls[r], 1e-30f);
@@ -684,6 +692,7 @@ extern "C" int flash_decode_launch(
   switch (D) {
     case 16: return FD_CALL(16);
     case 64: return FD_CALL(64);
+    case 112: return FD_CALL(112);
     case 128: return FD_CALL(128);
   }
 #undef FD_CALL
@@ -713,6 +722,7 @@ extern "C" int flash_decode_f32_launch(
   switch (D) {
     case 16: return launch_f32<16>(FD_ARGS);
     case 64: return launch_f32<64>(FD_ARGS);
+    case 112: return launch_f32<112>(FD_ARGS);
     case 128: return launch_f32<128>(FD_ARGS);
   }
 #undef FD_ARGS

@@ -37,6 +37,10 @@
 // its strides (16-byte aligned rows), so the model's [B, S, H, D] views go
 // in without a copy.  The kv loop stops at min(kv_len, the causal limit of
 // the block's last row); tiles wholly above the diagonal are never read.
+// Head sizes 16, 64 and 128 have their own instantiations; 112 (zamba2-7b's)
+// runs the 128 body: K, Q and V zero-filled past column 112 (cp.async with
+// a source size of 0, so nothing past it is read), seven k-steps of Q K^T,
+// the scale 1/sqrt(112), and only the 112 columns stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,9 +81,10 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Rows first .. first + 63 of a [rows, D] view (row stride rs elements)
-// into a swizzled tile; rows at and past n_valid are zero-filled.
-template <int D>
+// Rows first .. first + 63 of a [rows, DV] view (row stride rs elements)
+// into a swizzled tile of D columns; rows at and past n_valid, and columns
+// at and past DV, are zero-filled.
+template <int D, int DV>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
                                           long long rs, int first,
                                           int n_valid) {
@@ -87,8 +92,9 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
 #pragma unroll
   for (int idx = threadIdx.x; idx < 64 * CPR; idx += THREADS) {
     const int r = idx / CPR, c = idx % CPR;
-    const bool in = first + r < n_valid;
-    const bf16* src = base + (long long)(in ? first + r : 0) * rs + c * 8;
+    const bool in = first + r < n_valid && c * 8 < DV;
+    const bf16* src =
+        base + (long long)(in ? first + r : 0) * rs + (in ? c * 8 : 0);
     cp_async16(dst + sw128(r, c), src, in);
   }
 }
@@ -167,7 +173,10 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename OutT, int D>
+// D: the tile's row of values (16, 64 or 128); DV <= D: the head size.
+// A head size of 112 runs the D = 128 body: its last 16 columns are
+// zero-filled on load, skipped by Q K^T, and never stored.
+template <typename OutT, int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
     const bf16* __restrict__ q, long long qsb, long long qsh, long long qss,
     const bf16* __restrict__ k, long long ksb, long long ksh, long long kss,
@@ -176,7 +185,7 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
     int group, int Sq, int kv_len, int offset, int causal, float scale) {
   constexpr int NB = D > 64 ? D / 64 : 1;    // 64-column blocks of a row
   constexpr int TILE = NB * BLOCK;           // bytes of one Q, K or V tile
-  constexpr int KSTEPS = D / 16;
+  constexpr int KSTEPS = DV / 16;            // k-steps of Q K^T
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1024 B
@@ -201,9 +210,9 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
       z[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
   }
-  load_tile<D>(sQ, q + b * qsb + h * qsh, qss, q0, Sq);
-  load_tile<D>(sK, kp, kss, 0, kv_end);
-  load_tile<D>(sV, vp, vss, 0, kv_end);
+  load_tile<D, DV>(sQ, q + b * qsb + h * qsh, qss, q0, Sq);
+  load_tile<D, DV>(sK, kp, kss, 0, kv_end);
+  load_tile<D, DV>(sV, vp, vss, 0, kv_end);
   cp_async_commit();
 
   float acc[NB][32];
@@ -216,8 +225,8 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile<D>(sK + (st ^ 1) * TILE, kp, kss, (j + 1) * BK, kv_end);
-      load_tile<D>(sV + (st ^ 1) * TILE, vp, vss, (j + 1) * BK, kv_end);
+      load_tile<D, DV>(sK + (st ^ 1) * TILE, kp, kss, (j + 1) * BK, kv_end);
+      load_tile<D, DV>(sV + (st ^ 1) * TILE, vp, vss, (j + 1) * BK, kv_end);
     }
     cp_async_commit();
     cp_async_wait1();                      // tile j (and Q) has landed
@@ -311,14 +320,14 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = nb * 64 + 8 * i + 2 * t;
-        if (nb * 64 + 8 * i < D)
+        if (nb * 64 + 8 * i < DV)
           store2(op + col, acc[nb][4 * i + 2 * half] / den[half],
                  acc[nb][4 * i + 2 * half + 1] / den[half]);
       }
   }
 }
 
-template <typename OutT, int D>
+template <typename OutT, int D, int DV = D>
 int launch(const void* q, long long qsb, long long qsh, long long qss,
            const void* k, long long ksb, long long ksh, long long kss,
            const void* v, long long vsb, long long vsh, long long vss,
@@ -327,7 +336,7 @@ int launch(const void* q, long long qsb, long long qsh, long long qss,
            cudaStream_t stream) {
   constexpr int NB = D > 64 ? D / 64 : 1;
   const int smem = 5 * NB * BLOCK + 1024;  // Q, 2 K and 2 V tiles, align
-  auto kernel = flash_prefill_kernel<OutT, D>;
+  auto kernel = flash_prefill_kernel<OutT, D, DV>;
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -336,7 +345,7 @@ int launch(const void* q, long long qsb, long long qsh, long long qss,
     sized = true;
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)DV));   // the head size's
   kernel<<<grid, THREADS, smem, stream>>>(
       (const bf16*)q, qsb, qsh, qss, (const bf16*)k, ksb, ksh, kss,
       (const bf16*)v, vsb, vsh, vss, (OutT*)o, osb, osh, oss, H, H / Hkv, Sq,
@@ -362,13 +371,14 @@ extern "C" int flash_prefill_launch(
   const cudaStream_t st = (cudaStream_t)stream;
 #define FP_ARGS q, qsb, qsh, qss, k, ksb, ksh, kss, v, vsb, vsh, vss, o, osb, \
                 osh, oss, B, H, Hkv, Sq, kv_len, offset, causal, st
-#define FP_CALL(DD)                                                          \
-  (out_code == 0 ? launch<float, DD>(FP_ARGS)                                \
-                 : launch<__nv_bfloat16, DD>(FP_ARGS))
+#define FP_CALL(DD, DV)                                                      \
+  (out_code == 0 ? launch<float, DD, DV>(FP_ARGS)                            \
+                 : launch<__nv_bfloat16, DD, DV>(FP_ARGS))
   switch (D) {
-    case 16: return FP_CALL(16);
-    case 64: return FP_CALL(64);
-    case 128: return FP_CALL(128);
+    case 16: return FP_CALL(16, 16);
+    case 64: return FP_CALL(64, 64);
+    case 112: return FP_CALL(128, 112);
+    case 128: return FP_CALL(128, 128);
   }
 #undef FP_CALL
 #undef FP_ARGS

@@ -227,19 +227,26 @@ def tenant_carry_to_numpy(carry) -> tuple:
 
 
 def lm_params_from_numpy(cfg, params, device) -> dict:
-    """The JAX package's dense/vlm parameter tree (numpy arrays: ``emb``,
-    ``ln_f``, optional ``patch_proj``, and ``layers`` stacked ``[L, ...]``)
-    -> the port's parameters: the same ``[in, out]`` layout, one dict per
-    layer, in ``cfg``'s parameter dtype."""
+    """Any family's JAX parameter tree (numpy arrays) -> the port's: the
+    same names and ``[in, out]`` layout, in ``cfg``'s parameter dtype.
+    The subtrees stacked ``[L, ...]`` -- ``layers``, whisper's ``enc`` and
+    ``dec``, with their nested dicts (moe's ``moe``, whisper's ``attn``,
+    ``self``, ``cross``, ``mlp``) -- become one dict per layer; the others
+    (``emb``, ``ln_f``, ``patch_proj``, zamba2's ``shared`` block,
+    whisper's ``enc_pos`` and ``bn_f``) keep their shapes."""
     dt = cfg.pdtype()
 
-    def tensor(a):
-        return torch.as_tensor(np.array(a, np.float32), device=device).to(dt)
+    def tree(x, i=None):
+        if isinstance(x, dict):
+            return {k: tree(v, i) for k, v in x.items()}
+        a = np.asarray(x) if i is None else np.asarray(x)[i]
+        return torch.as_tensor(np.array(a, np.float32),
+                               device=device).to(dt)
 
-    layers = {k: np.asarray(v) for k, v in params["layers"].items()}
-    out = {"emb": tensor(params["emb"]), "ln_f": tensor(params["ln_f"]),
-           "layers": [{k: tensor(v[i]) for k, v in layers.items()}
-                      for i in range(cfg.n_layers)]}
-    if "patch_proj" in params:
-        out["patch_proj"] = tensor(params["patch_proj"])
-    return out
+    def n_stacked(x):
+        return n_stacked(next(iter(x.values()))) if isinstance(x, dict) \
+            else np.shape(x)[0]
+
+    return {k: [tree(v, i) for i in range(n_stacked(v))]
+            if k in ("layers", "enc", "dec") else tree(v)
+            for k, v in params.items()}

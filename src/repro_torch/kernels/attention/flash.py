@@ -24,6 +24,11 @@ raises otherwise), so the model's ``[B, S, H, D]`` activations and ``[B,
 S, Hkv, D]`` cache slices go in as ``transpose(1, 2)`` views without a
 copy.  The output is allocated ``[B, Sq, H, D]`` and returned as its ``[B,
 H, Sq, D]`` view, so the model's ``transpose(1, 2)`` back is contiguous.
+
+Head sizes: 16, 64 and 128 (the dense zoo's), and 112 (zamba2-7b's, 3584
+/ 32): the decode kernels have a 112 instantiation, the prefill kernels
+run their 128 body with the last 16 columns zero-filled and not stored.
+Every kernel scales by ``1/sqrt(D)`` of the real head size.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.kernels.attention.ref import geometry
 
 _I64, _I32, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)     # the kernels' template instantiations
+HEAD_DIMS = (16, 64, 112, 128)  # head sizes the kernels take
 DECODE_ROWS = 64              # Sq * group the decode kernels take
 DECODE_TILE = 64              # kv rows per tile of the decode kernels
 SPLIT_MIN_TILES = 8           # decode splits kv over blocks from 512 rows

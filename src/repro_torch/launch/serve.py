@@ -1,9 +1,12 @@
 """Serving launcher of the port (``repro/launch/serve.py``): the LM's
-continuous-batching loop on the PyTorch model, or (``--sim``) the
-multi-tenant simulation service::
+continuous-batching loop on the PyTorch model of any family of the
+registry (``--arch``), or (``--sim``) the multi-tenant simulation
+service::
 
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
         --requests 16 --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-7b --reduced \\
+        --device cpu
     python -m repro_torch.launch.serve --sim --tenants 6 --lanes 3 \\
         --t-end 5 --device cpu
 
@@ -15,7 +18,8 @@ Then all slots decode in lockstep, greedily, at one shared host-side
 ``t_pos``; a slot retires after ``--max-new`` tokens or at the end of
 the cache, and the whole window resets when the cache is exhausted (the
 reference's toy rollover).  On the card every attention call is flash
-attention (K10).
+attention (K10).  whisper decodes against the zero cross K/V of its
+``make_cache``, as the reference's loop does.
 
 ``--sim`` serves ``--tenants`` FAP simulations of ``--n`` soma neurons
 (``make_network(n, k_in=4, seed)``, currents 0.14-0.17 nA and QoS classes
@@ -53,6 +57,8 @@ def merge_slot_state(new_state, old_state, slot: int, batch: int):
 
 
 def _clone(state):
+    """A copy of a decode state (a flat dict of tensors), for the decode
+    steps that write their caches in place."""
     return {k: v.clone() for k, v in state.items()}
 
 
@@ -88,7 +94,7 @@ def serve_requests(cfg, params, queue, slots: int, max_new: int,
     n_requests = len(queue)
     B, S = slots, cache_len
     state = lm.make_decode_state(cfg, B, S, device=device)
-    dev = state["k"].device
+    dev = next(iter(state.values())).device
     slot_free = [True] * B
     slot_req = [None] * B
     slot_left = [0] * B

@@ -1,7 +1,8 @@
 """GQA attention of the LM zoo on flash attention (K10).
 
 The JAX package computes attention in jnp -- chunked-causal for
-train/prefill, direct for decode -- and names its Pallas flash kernel the
+train/prefill, direct for decode, full for whisper's encoder and
+cross-attention -- and names its Pallas flash kernel the
 production path.  Here both go through ``kernels.attention.ops``: K10 on
 a CUDA tensor, its plain version on the CPU.  The ``[B, S, H, D]``
 activations and ``[B, S, Hkv, D]`` caches go in as ``transpose(1, 2)``
@@ -59,5 +60,21 @@ def decode_attention(q, k_cache, v_cache, t_pos, compute_dtype=torch.bfloat16):
                             k_cache.to(cd).transpose(1, 2),
                             v_cache.to(cd).transpose(1, 2), causal=True,
                             offset=t_pos - 1, kv_len=t_pos,
+                            out_dtype=torch.float32)
+    return o.transpose(1, 2)
+
+
+def bidirectional_attention(q, k, v, compute_dtype=torch.bfloat16):
+    """Full (non-causal) attention: the whisper encoder's, and the
+    decoder's cross-attention to the encoder's K/V.  q: [B, Sq, H, D];
+    k, v: [B, Skv, Hkv, D] -> [B, Sq, H, D] (float32).
+
+    K10 with ``causal=False``; query head h reads kv head h / (H / Hkv) in
+    the kernel, where the JAX version repeats K and V to H heads first.
+    """
+    cd = compute_dtype
+    o = ops.flash_attention(q.to(cd).transpose(1, 2),
+                            k.to(cd).transpose(1, 2),
+                            v.to(cd).transpose(1, 2), causal=False,
                             out_dtype=torch.float32)
     return o.transpose(1, 2)

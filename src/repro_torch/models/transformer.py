@@ -12,6 +12,11 @@ loop.  Attention is flash attention (K10) on the card.
 ``decode_step`` writes each layer's new k/v into the cache at ``t_pos``
 in place (the JAX version returns an updated copy); a caller that needs
 the old cache clones it first.
+
+``ffn_fn(cfg, lp, h) -> (y, aux)`` replaces the SwiGLU FFN of every layer
+(the MoE family's ``moe.moe_ffn_fn``); ``forward`` returns the sum of the
+layers' ``aux``.  The SwiGLU FFN's aux is ``None`` (JAX's is a zero
+scalar), so the dense path makes no per-layer tensor for it.
 """
 from __future__ import annotations
 
@@ -43,8 +48,8 @@ def init_layer_params(cfg: ArchConfig, gen, device="cpu") -> dict:
 
 
 def init_params(cfg: ArchConfig, gen, device="cpu") -> dict:
-    """Random parameters at ``cfg``'s shapes, drawn from ``gen`` (a CPU
-    ``torch.Generator``)."""
+    """Random parameters at ``cfg``'s shapes, drawn from ``gen``
+    (``common.normal``: on the generator's own device)."""
     params = {
         "emb": cm.dense_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype(),
                              scale=0.02, device=device),
@@ -77,12 +82,13 @@ def _qkv(cfg: ArchConfig, lp, x):
 def _mlp(cfg: ArchConfig, lp, x):
     cd = cfg.cdtype()
     h = cm.swiglu(cm.mm(x, lp["w_gate"], cd), cm.mm(x, lp["w_up"], cd))
-    return cm.mm(h, lp["w_down"], cd)
+    return cm.mm(h, lp["w_down"], cd), None     # no aux: nothing to launch
 
 
-def layer_forward(cfg: ArchConfig, lp, x, cos, sin):
+def layer_forward(cfg: ArchConfig, lp, x, cos, sin, ffn_fn=None):
     """Full-sequence causal layer (prefill).  x: [B, S, d] float32.
-    Returns (x', (k, v)) with k/v for cache construction."""
+    Returns (x', (k, v), aux) with k/v for cache construction; aux is
+    ``None`` for the SwiGLU FFN."""
     h = cm.rms_norm(x, lp["ln1"])
     q, k, v = _qkv(cfg, lp, h)
     q = cm.apply_rope(q, cos, sin)
@@ -91,11 +97,12 @@ def layer_forward(cfg: ArchConfig, lp, x, cos, sin):
     B, S, _, _ = o.shape
     x = x + cm.mm(o.reshape(B, S, -1), lp["wo"], cfg.cdtype())
     h = cm.rms_norm(x, lp["ln2"])
-    x = x + _mlp(cfg, lp, h)
-    return x, (k, v)
+    y, aux = (ffn_fn or _mlp)(cfg, lp, h)
+    return x + y, (k, v), aux
 
 
-def layer_decode(cfg: ArchConfig, lp, x, kc, vc, t_pos, cos, sin):
+def layer_decode(cfg: ArchConfig, lp, x, kc, vc, t_pos, cos, sin,
+                 ffn_fn=None):
     """One-token decode.  x: [B, 1, d]; kc/vc: [B, S, Hkv, hd] caches,
     written at ``t_pos`` in place."""
     h = cm.rms_norm(x, lp["ln1"])
@@ -108,8 +115,8 @@ def layer_decode(cfg: ArchConfig, lp, x, kc, vc, t_pos, cos, sin):
     B = x.shape[0]
     x = x + cm.mm(o.reshape(B, 1, -1), lp["wo"], cfg.cdtype())
     h = cm.rms_norm(x, lp["ln2"])
-    x = x + _mlp(cfg, lp, h)
-    return x, kc, vc
+    y, _ = (ffn_fn or _mlp)(cfg, lp, h)
+    return x + y, kc, vc
 
 
 def embed_tokens(cfg: ArchConfig, params, tokens):
@@ -117,11 +124,11 @@ def embed_tokens(cfg: ArchConfig, params, tokens):
 
 
 def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
-            return_cache: bool = False):
+            return_cache: bool = False, ffn_fn=None):
     """Full-sequence forward.  tokens: [B, S] (plus optional VLM patch
     embeddings [B, P, d] prepended).  Returns (hidden [B, S_tot, d],
     (k, v) stacked [L, B, S_tot, Hkv, hd] | None, aux_loss) -- the JAX
-    layout; aux_loss is 0 here, since only MoE layers add to it."""
+    layout; aux_loss sums the layers' ``ffn_fn`` aux (0 for SwiGLU)."""
     x = embed_tokens(cfg, params, tokens)
     if cfg.n_patches and patch_embeds is not None:
         pe = cm.mm(patch_embeds.to(torch.float32), params["patch_proj"],
@@ -131,24 +138,27 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
     pos = torch.arange(S, device=x.device)
     cos, sin = cm.rope_tables(pos, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
+    aux = torch.zeros((), device=x.device)
     for lp in params["layers"]:
-        x, (k, v) = layer_forward(cfg, lp, x, cos, sin)
+        x, (k, v), a = layer_forward(cfg, lp, x, cos, sin, ffn_fn)
+        if a is not None:
+            aux = aux + a
         if return_cache:
             ks.append(k)
             vs.append(v)
     x = cm.rms_norm(x, params["ln_f"])
     caches = (torch.stack(ks), torch.stack(vs)) if return_cache else None
-    return x, caches, torch.zeros((), device=x.device)
+    return x, caches, aux
 
 
-def decode_step(cfg: ArchConfig, params, token, cache, t_pos):
+def decode_step(cfg: ArchConfig, params, token, cache, t_pos, ffn_fn=None):
     """token: [B, 1] int; cache: dict(k=[L,B,S,Hkv,hd], v=...), updated in
     place at ``t_pos``.  One step; returns (logits [B, 1, V], cache)."""
     x = embed_tokens(cfg, params, token)
     pos = torch.full((1,), int(t_pos), device=x.device)
     cos, sin = cm.rope_tables(pos, cfg.hd, cfg.rope_theta)
     for lp, kc, vc in zip(params["layers"], cache["k"], cache["v"]):
-        x, _, _ = layer_decode(cfg, lp, x, kc, vc, t_pos, cos, sin)
+        x, _, _ = layer_decode(cfg, lp, x, kc, vc, t_pos, cos, sin, ffn_fn)
     x = cm.rms_norm(x, params["ln_f"])
     logits = cm.mm(x, params["emb"].T, cfg.cdtype())
     return logits, cache

@@ -654,6 +654,12 @@ def _k10_check(q, k, v, causal, offset, kv_len, out_dtype, got):
     (1, 3, 1, 20, 200, 64, False, 150),         # decode, 60 rows, bidir.
     (2, 6, 2, 150, 300, 64, False, 211),        # prefill, masked kv tail
     (1, 4, 1, 100, 400, 128, True, 350),        # prefill, causal, kv tail
+    (2, 32, 32, 128, 128, 112, True, None),     # zamba2-7b: D = 112
+    (4, 32, 32, 1, 256, 112, True, 37),         # ... its decode step
+    (2, 4, 2, 1, 4096, 112, True, 4096),        # decode, D = 112, split
+    (1, 8, 2, 70, 90, 112, False, 80),          # D = 112, bidir., kv tail
+    (1, 32, 4, 1, 320, 112, True, 300),         # decode, D = 112, 8 rows
+    (1, 32, 4, 4, 600, 112, True, 555),         # ... 32 rows, split
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
                                               D, causal, kv_len):

@@ -7,7 +7,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from repro_torch.examples import lab_experiment, quickstart
+from repro_torch.examples import lab_experiment, quickstart, serve_decode
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -33,6 +33,13 @@ def test_lab_experiment_runs_on_cpu(capsys):
     for r in (r2a, r2c, reg):
         assert int(r.dropped) == 0 and not bool(r.failed)
     assert int(reg.n_resets) <= int(r2c.n_resets)
+
+
+def test_serve_decode_serves_reduced_qwen3_moe_on_cpu(capsys):
+    """``examples/serve_decode.py``'s run: 8 requests of reduced
+    qwen3-moe-30b-a3b through 4 slots, 16 new tokens each."""
+    assert serve_decode.main(["--device", "cpu"]) == 0
+    assert "served 8 requests, 128 tokens" in capsys.readouterr().out
 
 
 def test_regime_currents_equal_the_benchmarks_copy():

@@ -16,6 +16,7 @@
   and no division by a constant (``repro_torch/core/detmath.py``).
 """
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -128,7 +129,7 @@ def test_k10_f32_kernels_use_cuda_cores_and_async_copies(kind):
     float32 tolerance."""
     text = _f32_kernel_sources()[kind]
     assert "cp.async.cg.shared.global" in text and "fmaf(" in text
-    assert "load_tile<D>(" in text and "expf(" in text
+    assert re.search(r"load_tile<D(, DV)?>\(", text) and "expf(" in text
     assert "const float* __restrict__ q" in text
     for word in ("mma", "wgmma", "tf32", "cvt.rna"):
         assert word not in text, f"{kind} mentions {word}"
@@ -217,18 +218,29 @@ def test_robustness_and_service_entry_points_default_to_the_card(no_cuda):
     assert svc._carry[0].t.device.type == "cpu"
 
 
-def test_lm_entry_points_default_to_the_card(no_cuda):
-    cfg = get_config("smollm-135m").reduced()
+@pytest.mark.parametrize("name", ["smollm-135m", "qwen3-moe-30b-a3b",
+                                  "arctic-480b", "rwkv6-7b", "zamba2-7b",
+                                  "whisper-base"])
+def test_lm_entry_points_default_to_the_card(no_cuda, name):
+    """Every family's entry points, whisper's ``frames`` included, and
+    the serve CLI and example."""
+    from repro_torch.examples import serve_decode
+    cfg = get_config(name).reduced()
     params = lm.init_params(cfg, 0, device="cpu")
     state = lm.make_decode_state(cfg, 1, 8, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int64)
+    batch = {"tokens": tok}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((1, cfg.enc_frames, cfg.d_model))
     for call in (lambda: lm.init_params(cfg, 0),
                  lambda: lm.make_decode_state(cfg, 1, 8),
                  lambda: lm.decode_step(cfg, params, tok, state, 0),
-                 lambda: lm.forward_hidden(cfg, params, {"tokens": tok}),
-                 lambda: lm.prefill(cfg, params, {"tokens": tok}),
+                 lambda: lm.forward_hidden(cfg, params, batch),
+                 lambda: lm.prefill(cfg, params, batch),
                  lambda: serve.serve_requests(cfg, params, [], 1, 2, 8),
-                 lambda: serve.main(["--reduced", "--requests", "1"])):
+                 lambda: serve.main(["--arch", name, "--reduced",
+                                     "--requests", "1"]),
+                 lambda: serve_decode.main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -300,6 +312,18 @@ def test_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError):
         compact_rows_cuda(torch.zeros((2, 4), dtype=torch.bool),
                           torch.zeros((2, 4), dtype=torch.float64), 2)
+
+
+def test_k10_takes_the_zoos_head_sizes():
+    """16, 64, 128 and zamba2-7b's 112 in every kernel; 96 is refused."""
+    from repro_torch.kernels.attention.flash import variant
+    for D in (16, 64, 112, 128):
+        assert variant(torch.float32, 1, 1, D) == "f32_decode"
+        assert variant(torch.float32, 128, 1, D) == "f32_prefill"
+        assert variant(torch.bfloat16, 1, 8, D) == "decode"
+        assert variant(torch.bfloat16, 128, 1, D) == "prefill"
+    with pytest.raises(ValueError, match="head_dim 96"):
+        variant(torch.bfloat16, 1, 1, 96)
 
 
 def test_flash_attention_wrapper_refuses_what_it_cannot_take():
