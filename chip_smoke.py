@@ -155,10 +155,30 @@ Phases, each reported on its own lines:
      every MoE layer's expert assignments and keep masks equal on both
      devices (in bf16 compute apart only at ties of the probabilities,
      and the ranks such a tie moves);
+ 27. K10's backward (``csrc/flash_backward.cu``, two kernels: dq, then dk
+     and dv) against its plain version on the card, bf16 and float32:
+     smollm-135m's training shape (B 8, S 256, H 9, Hkv 3, D 64, causal),
+     4 x 2048, D 16 (ragged), zamba2-7b's D = 112, group 8 at D = 128,
+     whisper's encoder (1500 x 1500, bidirectional) and cross-attention
+     (Sq 128, Skv 1500): within 1e-5 (1 + |ref|) (+ 2**-7 |ref| for bf16
+     outputs), a second call bitwise the first; each case's ms per call,
+     device ms, bound, plain version and SDPA's backward;
+ 28. smollm-135m trained at full width by ``launch/train.py`` at its
+     defaults (batch 8, seq 256, lr 3e-4, WSD), 30 steps, saved every
+     10: the loss falls, K10's forward and both backward kernels launch
+     30 layers x 30 steps; a run killed at step 17 and resumed from step
+     10 gives the uninterrupted losses bitwise; ms a step, tok/s, peak
+     memory;
+ 29. whisper-base trained at full width (3 steps on one batch: finite,
+     falling), and every family's reduced config (dense, vlm, moe, ssm,
+     hybrid, audio; float32) and the dense one in bf16 compute: 3
+     ``train_step``s card against CPU, gradients, losses, grad norms and
+     parameters within stated tolerances;
  21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path and of phase 25's
-     four families (device busy share, busiest kernels).
+     four families, and of that many full-width smollm-135m training
+     steps (device busy share, busiest kernels).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
@@ -209,6 +229,8 @@ REPLACES = {
     "flash_attention_f32_prefill": "src/repro/kernels/attention/flash.py:65",
     "flash_attention_prefill": "src/repro/kernels/attention/flash.py:65",
     "flash_attention_decode": "src/repro/kernels/attention/flash.py:65",
+    # no TPU kernel: the JAX package differentiates its jnp attention
+    "flash_attention_bwd": "src/repro/models/attention.py:22, :96",
 }
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
@@ -221,7 +243,8 @@ SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "flash_attention_f32_decode": f"{SRC}/flash_decode.cu",
           "flash_attention_f32_prefill": f"{SRC}/flash_attention.cu",
           "flash_attention_prefill": f"{SRC}/flash_prefill.cu",
-          "flash_attention_decode": f"{SRC}/flash_decode.cu"}
+          "flash_attention_decode": f"{SRC}/flash_decode.cu",
+          "flash_attention_bwd": f"{SRC}/flash_backward.cu"}
 K10_KERNELS = ("flash_attention_f32_decode", "flash_attention_f32_prefill",
                "flash_attention_prefill", "flash_attention_decode")
 ROW_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -232,7 +255,8 @@ OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "compact_gather_kernel", "segment_rank_kernel",
                "compact_rows_kernel", "flash_attention_kernel",
                "flash_prefill_kernel", "flash_decode_kernel",
-               "flash_decode_f32_kernel", "flash_decode_merge_kernel")
+               "flash_decode_f32_kernel", "flash_decode_merge_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
@@ -2741,6 +2765,343 @@ def phase_families_card_vs_cpu(dev, requests=6, slots=3, max_new=8,
     return out
 
 
+# --------------------------------------------------------------- phase 27 --
+# K10's backward against its plain version (phase 27): within 1e-5 * (1 +
+# |want|) for the order of float32 sums and the exp (both compute in
+# float32 from the same inputs), plus, for bf16 inputs, the rounding of the
+# two float32 results to bf16 outputs, each within 2**-8 of its value:
+# 2**-7 * |want|, as ``ref.bf16_rounding_bound`` counts an output's
+# rounding.  Two float32 values that close round at most one bf16 ulp
+# apart, and an ulp is at most 2**-7 of the value, so a flip at a power of
+# two may use nearly all of the limit.
+BWD_CASES = [  # name, B, H, Hkv, Sq, Skv, D, causal
+    ("smollm-135m training", 8, 9, 3, 256, 256, 64, True),
+    ("4 x 2048", 4, 9, 3, 2048, 2048, 64, True),
+    ("D=16 ragged", 4, 4, 2, 300, 300, 16, True),
+    ("zamba2-7b D=112", 2, 32, 32, 128, 128, 112, True),
+    ("group 8 D=128", 1, 16, 2, 512, 512, 128, True),
+    ("whisper encoder", 2, 8, 8, 1500, 1500, 64, False),
+    ("whisper cross-attention", 2, 8, 8, 128, 1500, 64, False),
+]
+
+
+def _bwd_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D, causal, seed=0):
+    """q, k, v as the model hands them to K10, the forward's float32 o
+    and a float32 gradient of o."""
+    from repro_torch.kernels.attention import ops as a_ops
+    q, k, v = _attn_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D, seed)
+    o = a_ops.flash_attention(q, k, v, causal=causal,
+                              out_dtype=torch.float32)
+    do = torch.randn((B, Sq, H, D), generator=torch.Generator().manual_seed(
+        seed + 1)).to(dev).transpose(1, 2)
+    return q, k, v, o, do
+
+
+def _bwd_pairs(Sq, Skv, causal):
+    """(query, key) pairs a (batch, head) attends: causal with the
+    queries at the end of the timeline, row i sees Skv - Sq + i + 1."""
+    return Sq * (Skv - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Skv
+
+
+def phase_flash_backward(dev):
+    """K10's backward kernels (``csrc/flash_backward.cu``) against their
+    plain version on the card, bf16 and float32, at ``BWD_CASES``: within
+    the stated tolerance, a second call bitwise the first (no atomics),
+    one launch of each kernel a call; and every case's ms per call,
+    device ms, bound (the five products S, dP, dv, dq, dk: 10 D FLOPs a
+    pair, at bf16's tensor-core or float32's CUDA-core rate), the plain
+    version's ms and SDPA's backward (``scaled_dot_product_attention``
+    under autograd, a yardstick).  Returns the rows by (case, dtype)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import ref as a_ref
+    from repro_torch.kernels.attention.flash_backward import \
+        flash_attention_bwd_cuda
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, worst = {}, 0.0
+    for case in BWD_CASES:
+        name, B, H, Hkv, Sq, Skv, D, causal = case
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, o, do = _bwd_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D,
+                                         causal)
+            build.reset_launches()
+            got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+            torch.cuda.synchronize()
+            n = build.launches()
+            if n["flash_attention_bwd_dq"] != 1 or \
+                    n["flash_attention_bwd_dkdv"] != 1:
+                raise AssertionError(f"backward {name}: launches {n}")
+            want = a_ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+            err = 0.0
+            for g, w, part in zip(got, want, ("dq", "dk", "dv")):
+                w = w.float()
+                lim = ATTN_TOL * (1 + w.abs())
+                if dtype == torch.bfloat16:
+                    lim += 2 * a_ref.BF16_U * w.abs()
+                e = (g.float() - w).abs()
+                used = float((e / lim).max())
+                worst = max(worst, used)
+                err = max(err, float(e.max()))
+                if g.dtype != dtype or not bool(torch.isfinite(g).all()) \
+                        or used > 1.0:
+                    raise AssertionError(
+                        f"backward {name} {dtype}: {part} disagrees with the "
+                        f"plain version (max abs err {float(e.max()):.3e}, "
+                        f"{used:.3f} of the limit)")
+            again = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"backward {name} {dtype}: a second "
+                                     "call differs")
+            say("backward", f"{name} B={B} H={H} Hkv={Hkv} Sq={Sq} Skv={Skv}"
+                f" D={D} {'causal' if causal else 'full'} {str(dtype)[6:]}: "
+                f"dq, dk, dv max abs err {err:.3e}; bitwise on a second "
+                "call")
+            pairs = B * H * _bwd_pairs(Sq, Skv, causal)
+            size = q.element_size()
+            nbytes = 2 * size * (B * H * Sq * D + 2 * B * Hkv * Skv * D) + \
+                2 * 4 * B * H * Sq * D
+            lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+            lo = sdpa(lq, lk, lv, is_causal=causal, enable_gqa=True)
+            ldo = do.to(lo.dtype)
+            row = kernel_row(
+                err, lambda: flash_attention_bwd_cuda(q, k, v, o, do, causal),
+                lambda: a_ref.flash_attention_bwd_ref(q, k, v, o, do, causal),
+                nbytes, 10 * D * pairs,
+                BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                library=lambda: torch.autograd.grad(
+                    lo, (lq, lk, lv), ldo, retain_graph=True),
+                library_syncs=True)
+            say("backward", f"{name} ({str(dtype)[6:]}): {fmt_row(row)} "
+                "(library: "
+                "scaled_dot_product_attention's backward); "
+                f"{10 * D * pairs / row['device_ms'] / 1e9:.1f} TFLOP/s on "
+                "the device")
+            rows[name, str(dtype)[6:]] = row
+            del lo, lq, lk, lv
+    say("backward", f"{len(BWD_CASES)} cases x bf16 and float32 within "
+        f"tolerance, widest {worst:.3f} of the limit")
+    return rows
+
+
+# --------------------------------------------------------------- phase 28 --
+TRAIN_STEPS = 30               # phase 28's run: launch/train.py's defaults
+TRAIN_KILL = 17                # ... killed here, resumed from step 10
+
+
+def phase_train(dev, smi):
+    """smollm-135m trained at full width and depth on the card by
+    ``launch.train`` at its defaults (batch 8, seq 256, lr 3e-4, WSD
+    schedule) for ``TRAIN_STEPS`` steps, checkpointed every 10, weights
+    drawn on the card: the loss falls; K10's forward (its bf16 prefill
+    kernel) and both backward kernels launch once per layer a step (the
+    counts zeroed just before the run); then a run killed at step
+    ``TRAIN_KILL`` (exit 75) and resumed from its step-10 checkpoint gives
+    the uninterrupted run's losses bitwise from step 10 on."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    ap = train.build_parser()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--steps", str(TRAIN_STEPS), "--save-every", "10",
+                "--device", str(dev)]
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = train.train(ap.parse_args(base + ["--ckpt-dir",
+                                                  f"{tmp}/whole"]))
+        wall = time.perf_counter() - t0
+        counts = build.launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        args = ap.parse_args(base)
+        from repro_torch.configs import get_config
+        L = get_config(args.arch).n_layers
+        want = L * TRAIN_STEPS
+        losses = [h["loss"] for h in whole.history]
+        if whole.rc != 0 or len(losses) != TRAIN_STEPS or \
+                not all(np.isfinite(losses)) or \
+                not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise AssertionError(f"training: rc {whole.rc}, losses {losses}")
+        if {counts[k] for k in ("flash_attention", "flash_attention_prefill",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkdv")} != {want}:
+            raise AssertionError(f"training: K10 launches {counts}, not "
+                                 f"{L} layers x {TRAIN_STEPS} steps")
+        # steps 0 and 1 build and warm up; the rest is the steady state
+        ms = statistics.median(h["time_s"] for h in whole.history[2:]) * 1e3
+        tokens = args.batch * args.seq
+        stats = dict(arch=args.arch, steps=TRAIN_STEPS, batch=args.batch,
+                     seq=args.seq, lr=args.lr, n_params=whole.n_params,
+                     first_loss=losses[0], last_loss=losses[-1],
+                     ms_per_step=ms, tok_per_s=tokens / ms * 1e3,
+                     wall_s=wall, peak_gib=peak, k10_forward=want,
+                     k10_backward=want, gpu=smi)
+        say("train", f"{args.arch} ({whole.n_params} params) at launch/"
+            f"train.py's defaults: batch {args.batch} x seq {args.seq}, lr "
+            f"{args.lr}, {TRAIN_STEPS} steps, save every 10: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.2f} ms a step "
+            f"(median of steps 2-{TRAIN_STEPS - 1}, host clock around the "
+            f"step and the loss's sync), {stats['tok_per_s']:.0f} tok/s; run "
+            f"{wall:.1f} s with checkpoints; peak memory {peak:.2f} GiB; K10 "
+            f"forward (prefill kernel) and backward (dq, dkdv) {want} "
+            f"launches each = {L} layers x {TRAIN_STEPS}; on {smi}")
+        killed = train.train(ap.parse_args(base + [
+            "--ckpt-dir", f"{tmp}/killed", "--inject-failure-at",
+            str(TRAIN_KILL)]))
+        resumed = train.train(ap.parse_args(base + ["--ckpt-dir",
+                                                    f"{tmp}/killed"]))
+        got = [h["loss"] for h in resumed.history]
+        if killed.rc != 75 or resumed.rc != 0 or resumed.start != 10 or \
+                got != losses[10:]:
+            raise AssertionError(
+                f"kill/resume: rc {killed.rc}, {resumed.rc}, start "
+                f"{resumed.start}; losses {got} against {losses[10:]}")
+        say("train", f"killed at step {TRAIN_KILL} (exit 75), resumed from "
+            f"step {resumed.start}: losses of steps 10-{TRAIN_STEPS - 1} "
+            "bitwise the uninterrupted run's")
+    return {"flash_attention_bwd": want}, stats
+
+
+# --------------------------------------------------------------- phase 29 --
+TRAIN_CPU_ARCHS = ("smollm-135m", "internvl2-1b", "qwen3-moe-30b-a3b",
+                   "rwkv6-7b", "zamba2-7b", "whisper-base")
+# Card against CPU (phase 29): (loss, gradient) tolerances -- losses and
+# grad norms relative, each leaf's gradient of its largest magnitude.
+# Float32: the card and the CPU differ in last bits (exp, the order of
+# float32 sums in cuBLAS, K10 and its backward against the plain
+# versions).  ``scripts/train_sensitivity.py`` measures how far such bits
+# move three steps on the CPU (every parameter scaled by 1 + 2**-24 n):
+# up to 3e-7 in the loss and grad norm and 2.6e-5 of a leaf's gradient
+# for the attention families (whisper-base's cross-attention), but 1e-4
+# and 1.1e-3 for the recurrent ones (rwkv6-7b, zamba2-7b: 64-step host
+# time loops through exp(-exp(.)) decays); each tolerance is about ten
+# times that.  bf16 compute: one bf16 rounding of an activation that lands
+# on the other side moves it by 2**-8 of itself, as phase 17's LM_TOL
+# says.  The parameters after AdamW steps: within 1e-5 (1 + |p|) plus,
+# per step, lr * min(2, 2 tau / |g|) -- a gradient entry within the
+# tolerance tau of zero may take the other sign and move its parameter
+# 2 lr apart.
+TRAIN_TOL = {"float32": (1e-5, 3e-4), "float32 recurrent": (1e-3, 1e-2),
+             "bfloat16": (2.0 ** -8, 2.0 ** -5)}
+WHISPER_TRAIN = (2, 128)       # phase 29's full-width whisper: batch x seq
+
+
+def _grads(lm, cfg, params, batch, dev):
+    """The gradient leaves of ``lm.loss_and_grad``, in tree order."""
+    from torch.utils._pytree import tree_flatten
+    return tree_flatten(lm.loss_and_grad(cfg, params, batch,
+                                         device=dev)[1])[0]
+
+
+def phase_train_card_vs_cpu(dev, smi, steps=3, lr=1e-3):
+    """whisper-base at full width (6 + 6 layers, 1500 frames, bf16) for
+    three steps on one batch: finite, falling losses, K10's forward and
+    backward once per attention call.  Then every family's reduced config
+    (dense, vlm, moe, ssm, hybrid, audio; float32) and the dense one in
+    bf16 compute: ``steps`` ``train_step``s from the same state and
+    batches on the card and on the CPU, the gradients, losses, grad norms
+    and parameters within ``TRAIN_TOL``."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    cfg = get_config("whisper-base")
+    B, S = WHISPER_TRAIN
+    params, opt = lm.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = make_batch(cfg, ShapeConfig("t", S, B, "train"), 0, 0,
+                       device=dev)
+    build.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = lm.train_step(cfg, params, opt, batch, lr,
+                                       device=dev)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = build.launches()
+    calls = steps * (cfg.enc_layers + 2 * cfg.n_layers)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            counts["flash_attention"] != calls or \
+            counts["flash_attention_bwd_dq"] != calls or \
+            counts["flash_attention_bwd_dkdv"] != calls:
+        raise AssertionError(f"whisper-base training: losses {losses}, "
+                             f"launches {counts}")
+    out = {"whisper-base": dict(batch=B, seq=S, frames=cfg.enc_frames,
+                                losses=losses, ms_per_step=times[-1] * 1e3)}
+    say("train-vs-cpu", f"whisper-base full width (6 + 6 layers, d "
+        f"{cfg.d_model}, {cfg.enc_frames} frames), batch {B} x {S}, lr {lr}"
+        f", {steps} steps on one batch: loss "
+        f"{' -> '.join(f'{x:.4f}' for x in losses)}; {times[-1] * 1e3:.1f} "
+        f"ms the last step; K10 forward and backward {calls} launches each "
+        f"(encoder self, decoder self and cross per layer)")
+    del params, opt
+    torch.cuda.empty_cache()
+    runs = [(a, "float32") for a in TRAIN_CPU_ARCHS] + \
+        [("smollm-135m", "bfloat16")]
+    for arch, cd in runs:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  compute_dtype=cd)
+        loss_tol, grad_tol = TRAIN_TOL[
+            "float32 recurrent" if cd == "float32" and
+            cfg.family in ("ssm", "hybrid") else cd]
+        cpu, copt = lm.init_train_state(cfg, 0, device="cpu")
+        card, gopt = lm.init_train_state(cfg, 0, device=dev)
+        allow, widest, gwide = None, 0.0, 0.0
+        build.reset_launches()
+        for step in range(steps):
+            batch = make_batch(cfg, ShapeConfig("t", 64, 4, "train"), 0,
+                               step, device="cpu")
+            gc = _grads(lm, cfg, cpu, batch, "cpu")
+            gg = _grads(lm, cfg, card, batch, dev)
+            for a, b in zip(gg, gc):
+                e = float((a.cpu() - b).abs().max()) / \
+                    max(float(b.abs().max()), 1e-30)
+                gwide = max(gwide, e)
+                if e > grad_tol:
+                    raise AssertionError(f"{arch} {cd}: card and CPU "
+                                         f"gradients {e:.3e} apart")
+            add = [lr * torch.clamp(2 * grad_tol * g.abs().max() /
+                                    g.abs().clamp_min(1e-30), max=2.0)
+                   for g in gc]
+            allow = add if allow is None else \
+                [a + b for a, b in zip(allow, add)]
+            cpu, copt, mc = lm.train_step(cfg, cpu, copt, batch, lr,
+                                          device="cpu")
+            card, gopt, mg = lm.train_step(cfg, card, gopt, batch, lr,
+                                           device=dev)
+            for key in ("loss", "grad_norm"):
+                e = abs(float(mg[key]) - float(mc[key])) / \
+                    abs(float(mc[key]))
+                widest = max(widest, e)
+                if not e <= loss_tol:
+                    raise AssertionError(f"{arch} {cd} step {step}: card "
+                                         f"and CPU {key} {e:.3e} apart")
+            for a, b, al in zip(tree_flatten(card)[0], tree_flatten(cpu)[0],
+                                allow):
+                if not bool(((a.cpu() - b).abs() <=
+                             1e-5 * (1 + b.abs()) + al).all()):
+                    raise AssertionError(f"{arch} {cd}: card and CPU "
+                                         f"parameters apart after step "
+                                         f"{step}")
+        counts = build.launches()
+        attn = counts["flash_attention_bwd_dq"]
+        if (cfg.family != "ssm") != (attn > 0) or \
+                attn != counts["flash_attention_bwd_dkdv"]:
+            raise AssertionError(f"{arch} {cd}: backward launches {counts}")
+        out[f"{arch} {cd}"] = dict(loss=float(mc["loss"]),
+                                   widest_loss_rel=widest,
+                                   widest_grad_rel=gwide, bwd_launches=attn)
+        say("train-vs-cpu", f"reduced {arch} {cd}: {steps} train steps, "
+            f"losses and grad norms within {widest:.3e} relative (tol "
+            f"{loss_tol:.3e}), gradients within {gwide:.3e} of each leaf's "
+            f"largest (tol {grad_tol:.3e}), parameters within the AdamW "
+            f"allowance; K10 backward {attn} launches of each kernel")
+    return out
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -2777,6 +3138,50 @@ def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
         say("profile", f"  {e.key[:60]:60s} {e.count / n_rounds:8.0f}/round "
             f"{e.self_device_time_total / n_rounds / 1e3:8.3f} ms/round")
+
+
+def phase_profile_train(dev, n_steps, warm=3):
+    """Where a full-width training step's time goes: ``torch.profiler``
+    over ``n_steps`` of ``lm.train_step`` on smollm-135m at
+    ``launch/train.py``'s batch and sequence, after ``warm`` unprofiled
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.models import lm
+    cfg = get_config(LM_ARCH)
+    params, opt = lm.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = make_batch(cfg, ShapeConfig("t", 256, 8, "train"), 0, 0,
+                       device=dev)
+    for _ in range(warm):
+        params, opt, m = lm.train_step(cfg, params, opt, batch, 3e-4,
+                                       device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            params, opt, m = lm.train_step(cfg, params, opt, batch, 3e-4,
+                                           device=dev)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    timed = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    ev = [e for e in timed if str(e.device_type).endswith("CUDA")] or timed
+    dev_us = sum(e.self_device_time_total for e in ev)
+    say("profile", f"{cfg.name} training steps (batch 8 x 256): wall "
+        f"{wall_us / n_steps / 1e3:.2f} ms per step (profiled), device "
+        f"{dev_us / n_steps / 1e3:.3f} ms per step, busy share "
+        f"{dev_us / wall_us:.3f}, "
+        f"{sum(e.count for e in ev) / n_steps:.0f} device ops per step")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:10]:
+        say("profile", f"  {e.key[:60]:60s} {e.count / n_steps:8.0f}/step "
+            f"{e.self_device_time_total / n_steps / 1e3:8.3f} ms/step")
+    del params, opt
+    torch.cuda.empty_cache()
 
 
 def phase_profile_serve(dev, n_steps, t_pos=128, arch=LM_ARCH):
@@ -2822,7 +3227,7 @@ def phase_profile_serve(dev, n_steps, t_pos=128, arch=LM_ARCH):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--t-end", type=float, default=12.0,
+    ap.add_argument("--t-end", type=float, default=10.0,
                     help="simulated ms of the full-width phases 3, 4, 9, "
                     "18 and 22")
     ap.add_argument("--out", default=None, help="also write results as JSON")
@@ -2870,6 +3275,12 @@ def main(argv=None):
     robust_vs_cpu = phase_robust_card_vs_cpu(dev, smi)
     families = phase_families(dev, smi)
     families_vs_cpu = phase_families_card_vs_cpu(dev)
+    bwd_rows = phase_flash_backward(dev)
+    rows["flash_attention_bwd"] = bwd_rows["smollm-135m training",
+                                           "bfloat16"]
+    train_launches, train_stats = phase_train(dev, smi)
+    launches.update(train_launches)
+    train_vs_cpu = phase_train_card_vs_cpu(dev, smi)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -2878,6 +3289,7 @@ def main(argv=None):
         phase_profile_serve(dev, args.profile)
         for arch in FAMILY_ARCHS:
             phase_profile_serve(dev, args.profile, t_pos=16, arch=arch)
+        phase_profile_train(dev, args.profile)
     launches.update({k: act_launches[k] for k in ACTIVE_PATH
                      if k not in DENSE_PATH})
     launches.update({k: base_launches[k] for k in BASELINE_PATH})
@@ -2902,7 +3314,11 @@ def main(argv=None):
              "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu,
              "checkpoint": ckpt, "service": service,
              "robust_card_vs_cpu": robust_vs_cpu, "families": families,
-             "families_card_vs_cpu": families_vs_cpu},
+             "families_card_vs_cpu": families_vs_cpu,
+             "flash_backward": {f"{n} {d}": r for (n, d), r in
+                                bwd_rows.items()},
+             "train": train_stats,
+             "train_card_vs_cpu": train_vs_cpu},
             indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,9 @@ service -- handed over as NamedTuples (or any object with those fields)
 of numpy arrays -- into the port's tensors, and
 the port's back into dicts of numpy arrays that rebuild the JAX
 NamedTuples with ``Cls(**d)``.  ``lm_params_from_numpy`` carries an LM's
-parameter tree across.  Nothing here imports the JAX package: the
+parameter tree across, ``adamw_state_from_numpy`` its optimizer state
+and ``batch_from_numpy`` a training batch; ``lm_tree_to_numpy`` and
+``adamw_state_to_numpy`` bring the port's back in the JAX layout.  Nothing here imports the JAX package: the
 caller does the ``np.asarray`` on its side.
 
 The JAX ``BDFState`` of a vmapped network already carries the leading
@@ -28,6 +30,7 @@ from repro_torch.core.events import EventQueue, SpikeRecord
 from repro_torch.core.exec_common import SchedStats, SimCarry
 from repro_torch.core.exec_speculative import SpecStats
 from repro_torch.core.network import Network
+from repro_torch.optim import AdamWState
 from repro_torch.sched.wheel import WheelQueue
 
 _INT = (np.int8, np.int16, np.int32, np.int64, np.uint8)
@@ -226,6 +229,29 @@ def tenant_carry_to_numpy(carry) -> tuple:
             sched_stats_to_numpy(stats), _numpy(rounds))
 
 
+_STACKED = ("layers", "enc", "dec")
+
+
+def _lm_tree_from_numpy(tree, dtype, device) -> dict:
+    """A JAX LM tree (numpy leaves) in the port's layout: the subtrees
+    stacked ``[L, ...]`` become one dict per layer, each leaf a tensor of
+    ``dtype``."""
+    def leaf(x, i=None):
+        if isinstance(x, dict):
+            return {k: leaf(v, i) for k, v in x.items()}
+        a = np.asarray(x) if i is None else np.asarray(x)[i]
+        return torch.as_tensor(np.array(a, np.float32),
+                               device=device).to(dtype)
+
+    def n_stacked(x):
+        return n_stacked(next(iter(x.values()))) if isinstance(x, dict) \
+            else np.shape(x)[0]
+
+    return {k: [leaf(v, i) for i in range(n_stacked(v))]
+            if k in _STACKED else leaf(v)
+            for k, v in tree.items()}
+
+
 def lm_params_from_numpy(cfg, params, device) -> dict:
     """Any family's JAX parameter tree (numpy arrays) -> the port's: the
     same names and ``[in, out]`` layout, in ``cfg``'s parameter dtype.
@@ -234,19 +260,50 @@ def lm_params_from_numpy(cfg, params, device) -> dict:
     ``self``, ``cross``, ``mlp``) -- become one dict per layer; the others
     (``emb``, ``ln_f``, ``patch_proj``, zamba2's ``shared`` block,
     whisper's ``enc_pos`` and ``bn_f``) keep their shapes."""
-    dt = cfg.pdtype()
+    return _lm_tree_from_numpy(params, cfg.pdtype(), device)
 
-    def tree(x, i=None):
+
+def lm_tree_to_numpy(tree) -> dict:
+    """The port's LM tree (parameters, gradients or AdamW moments) ->
+    the JAX layout as float32 numpy arrays: each per-layer list stacked
+    back to ``[L, ...]``."""
+    def leaf(x):
         if isinstance(x, dict):
-            return {k: tree(v, i) for k, v in x.items()}
-        a = np.asarray(x) if i is None else np.asarray(x)[i]
-        return torch.as_tensor(np.array(a, np.float32),
-                               device=device).to(dt)
+            return {k: leaf(v) for k, v in x.items()}
+        return x.detach().to(torch.float32).cpu().numpy()
 
-    def n_stacked(x):
-        return n_stacked(next(iter(x.values()))) if isinstance(x, dict) \
-            else np.shape(x)[0]
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return np.stack([leaf(x) for x in layers])
 
-    return {k: [tree(v, i) for i in range(n_stacked(v))]
-            if k in ("layers", "enc", "dec") else tree(v)
-            for k, v in params.items()}
+    return {k: stack(v) if k in _STACKED else leaf(v)
+            for k, v in tree.items()}
+
+
+def adamw_state_from_numpy(state, device):
+    """A JAX ``repro.optim.AdamWState`` (numpy leaves, moments in the
+    parameters' stacked layout) -> the port's: ``step`` an int32 tensor,
+    ``mu`` and ``nu`` float32 trees in the port's layout."""
+    f = _fields(state, AdamWState._fields)
+    return AdamWState(
+        step=torch.tensor(np.asarray(f["step"], np.int32), device=device),
+        mu=_lm_tree_from_numpy(f["mu"], torch.float32, device),
+        nu=_lm_tree_from_numpy(f["nu"], torch.float32, device))
+
+
+def adamw_state_to_numpy(state) -> dict:
+    """The port's ``AdamWState`` -> a dict of numpy arrays in the JAX
+    layout that rebuilds ``repro.optim.AdamWState(**d)``."""
+    return {"step": np.asarray(_numpy(state.step), np.int32),
+            "mu": lm_tree_to_numpy(state.mu),
+            "nu": lm_tree_to_numpy(state.nu)}
+
+
+def batch_from_numpy(batch, device) -> dict:
+    """A JAX batch (numpy arrays: int "tokens"/"labels", float32
+    "patches"/"frames") -> tensors: int64 ids, float32 stubs."""
+    return {k: torch.tensor(np.asarray(v, np.int64 if k in
+                                       ("tokens", "labels") else np.float32),
+                            device=device)
+            for k, v in batch.items()}

@@ -18,12 +18,17 @@ and ``flash_attention.cu`` (register-tiled); bfloat16 inputs run
 ``flash_decode.cu`` (``mma.sync``, one block per GQA group) and
 ``flash_prefill.cu`` (``wgmma``).  All four fill their shared-memory tiles
 with ``cp.async``; none uses TMA, so no source links the driver API.
+K10's gradient, ``flash_backward.cu``, is two CUDA-core kernels (dq, then
+dk and dv) that a training step's backward pass launches through
+``kernels/attention/ops.py::FlashAttentionFn``.
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises when
 it is not 0.  Each wrapper adds one to its launch counter (``count``)
 where it launches its kernel, and nowhere else.  K10 counts each call under
 ``flash_attention`` and under the kernel that ran
-(``flash_attention_{f32_decode,f32_prefill,decode,prefill}``).
+(``flash_attention_{f32_decode,f32_prefill,decode,prefill}``); its
+backward counts ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv``
+once each a call.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("hines", "hh_rhs", "horizon", "compact", "segment_rank",
-           "flash_attention", "flash_prefill", "flash_decode")
+           "flash_attention", "flash_prefill", "flash_decode",
+           "flash_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -51,7 +57,8 @@ LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
             "compact_gather": 0, "segment_rank": 0, "compact_rows": 0,
             "flash_attention": 0, "flash_attention_f32_decode": 0,
             "flash_attention_f32_prefill": 0, "flash_attention_prefill": 0,
-            "flash_attention_decode": 0}
+            "flash_attention_decode": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkdv": 0}
 
 
 def nvcc_path() -> str:

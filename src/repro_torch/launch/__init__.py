@@ -1,1 +1,2 @@
-"""Launch layer of the port: the LM serving driver (``serve.py``)."""
+"""Launch layer of the port: the LM and simulation serving launcher
+(``serve.py``) and the LM training launcher (``train.py``)."""

@@ -1,3 +1,4 @@
 """LM architecture zoo of the port: the dense GQA transformer and its VLM
-backbone (``transformer.py``) behind the unified serving API of
-``lm.py``.  MoE, RWKV6, Mamba2 hybrid and whisper are not ported yet."""
+backbone (``transformer.py``), MoE (``moe.py``), RWKV6 (``rwkv6.py``), the
+Zamba2 hybrid (``zamba2.py``) and whisper (``whisper.py``), behind the
+unified serving and training API of ``lm.py``."""

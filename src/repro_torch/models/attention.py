@@ -8,6 +8,13 @@ a CUDA tensor, its plain version on the CPU.  The ``[B, S, H, D]``
 activations and ``[B, S, Hkv, D]`` caches go in as ``transpose(1, 2)``
 views; the kernel reads them through their strides.
 
+Training differentiates through ``ops.FlashAttentionFn``: where autograd
+records (the parameters require grad), ``chunked_causal_attention`` and
+``bidirectional_attention`` go through it, and its backward is K10's
+backward kernels on the card (``csrc/flash_backward.cu``), their plain
+version on the CPU.  ``decode_attention`` is never differentiated; no
+serving call records, so serving launches what it did before.
+
 Rounding differs from the jnp path in one place: jnp normalises p before
 casting it to the compute dtype, flash divides by the row sum after the
 product with v.  In float32 the two agree to rounding; in bf16 they

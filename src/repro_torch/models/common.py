@@ -11,14 +11,16 @@ here so that the model's function does not depend on a caller's setting.
 The JAX package's model code marks activations with
 ``distributed/ctx.py::constrain`` for its sharded dry run; on one card
 those calls are no-ops, and the port's models make none.  Its structural
-``scan``/``unroll_scans`` (the dry run's cost analysis) and the training
-losses are not ported here (ROADMAP queue 1 item 6, training).
+``scan``/``unroll_scans`` (the dry run's cost analysis) are not ported
+here (ROADMAP queue 1 item 8); the training loss (``softmax_xent``,
+``chunked_lm_loss``) is.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils.checkpoint import checkpoint
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -45,6 +47,18 @@ def dense_init(gen, d_in, d_out, dtype, scale=None, device="cpu"):
     (:func:`normal`); the scale defaults to ``d_in ** -0.5``."""
     scale = scale if scale is not None else (d_in ** -0.5)
     return normal(gen, (d_in, d_out), scale, dtype, device)
+
+
+def embed(emb, tokens):
+    """Rows ``tokens`` of the embedding ``emb [V, d]``, float32.
+
+    ``F.embedding`` rather than ``emb[tokens]``: the two gather alike, but
+    the indexing's backward is ``index_put_(accumulate=True)``, whose
+    parallel CPU kernel adds repeated tokens' gradients in a varying
+    order, while the embedding's backward adds them in a fixed order on
+    the CPU and sorts them on the card -- a training step gives the same
+    bits on every run, and a resumed run the uninterrupted one's."""
+    return F.embedding(tokens, emb).to(torch.float32)
 
 
 def rms_norm(x, gamma, eps=1e-6):
@@ -82,6 +96,47 @@ def apply_rope(x, cos, sin):
 
 def swiglu(x_gate, x_up):
     return F.silu(x_gate) * x_up
+
+
+def softmax_xent(logits, labels, vocab=None):
+    """Mean token cross-entropy; logits float32 [N, V], labels int [N].
+    The row max is a constant to the gradient, as in JAX.  ``vocab`` is
+    unused (the JAX signature's)."""
+    del vocab
+    logits = logits.to(torch.float32)
+    lmax = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) + lmax[..., 0]
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def chunked_lm_loss(x, emb, labels, n_chunks: int = 8,
+                    compute_dtype=torch.bfloat16):
+    """Cross-entropy over tied-embedding logits without materialising the
+    full [B, S, V] tensor: the mean of the per-chunk means over
+    ``n_chunks`` sequence chunks (lowered until it divides S), added in
+    chunk order.  Each chunk's body runs under ``torch.utils.checkpoint``
+    (``jax.checkpoint`` in JAX): its logits are recomputed in the
+    backward pass, so at most one chunk's are live.
+
+    x: [B, S, d] final hidden states; emb: [V, d]; labels: [B, S].
+    """
+    B, S, d = x.shape
+    V = emb.shape[0]
+    while S % n_chunks:
+        n_chunks -= 1
+    c = S // n_chunks
+
+    def body(xi, li, emb):
+        logits = mm(xi, emb.T, compute_dtype)            # [B, c, V] f32
+        return softmax_xent(logits.reshape(-1, V), li.reshape(-1), V)
+
+    total = torch.zeros((), device=x.device)
+    for i in range(n_chunks):
+        total = total + checkpoint(body, x[:, i * c:(i + 1) * c],
+                                   labels[:, i * c:(i + 1) * c], emb,
+                                   use_reentrant=False)
+    return total / n_chunks
 
 
 def chunked_time_scan(step, carry0, seq):

@@ -142,7 +142,7 @@ def forward(cfg: ArchConfig, params, tokens, state=None):
     """Full-sequence forward; returns (hidden, state') with state' new
     tensors ``[L, B, ...]``."""
     B = tokens.shape[0]
-    x = params["emb"][tokens].to(torch.float32)
+    x = cm.embed(params["emb"], tokens)
     if state is None:
         state = make_state(cfg, B, device=x.device)
     new = {k: [] for k in state}

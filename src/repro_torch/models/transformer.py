@@ -9,9 +9,10 @@ w_gate, w_up, w_down`` and ``bq, bk, bv`` with ``qkv_bias``) -- the JAX
 package stacks them ``[L, ...]`` and scans; here the scan is a Python
 loop.  Attention is flash attention (K10) on the card.
 
-``decode_step`` writes each layer's new k/v into the cache at ``t_pos``
-in place (the JAX version returns an updated copy); a caller that needs
-the old cache clones it first.
+The training forward writes nothing in place (``remat`` recomputes a
+layer from its inputs); ``decode_step`` writes each layer's new k/v into
+the cache at ``t_pos`` in place (the JAX version returns an updated
+copy); a caller that needs the old cache clones it first.
 
 ``ffn_fn(cfg, lp, h) -> (y, aux)`` replaces the SwiGLU FFN of every layer
 (the MoE family's ``moe.moe_ffn_fn``); ``forward`` returns the sum of the
@@ -21,6 +22,7 @@ scalar), so the dense path makes no per-layer tensor for it.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -120,15 +122,22 @@ def layer_decode(cfg: ArchConfig, lp, x, kc, vc, t_pos, cos, sin,
 
 
 def embed_tokens(cfg: ArchConfig, params, tokens):
-    return params["emb"][tokens].to(torch.float32)
+    return cm.embed(params["emb"], tokens)
 
 
 def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
-            return_cache: bool = False, ffn_fn=None):
+            return_cache: bool = False, ffn_fn=None, attn_chunk: int = 1024,
+            remat: bool = False):
     """Full-sequence forward.  tokens: [B, S] (plus optional VLM patch
     embeddings [B, P, d] prepended).  Returns (hidden [B, S_tot, d],
     (k, v) stacked [L, B, S_tot, Hkv, hd] | None, aux_loss) -- the JAX
-    layout; aux_loss sums the layers' ``ffn_fn`` aux (0 for SwiGLU)."""
+    layout; aux_loss sums the layers' ``ffn_fn`` aux (0 for SwiGLU).
+
+    ``remat`` runs each layer under ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint`` per layer): a backward pass recomputes the layer's
+    activations, K10 included, instead of keeping them.  ``attn_chunk``
+    is ignored (``attention.chunked_causal_attention``)."""
+    del attn_chunk
     x = embed_tokens(cfg, params, tokens)
     if cfg.n_patches and patch_embeds is not None:
         pe = cm.mm(patch_embeds.to(torch.float32), params["patch_proj"],
@@ -139,8 +148,14 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
     cos, sin = cm.rope_tables(pos, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
     aux = torch.zeros((), device=x.device)
+    def layer(lp, x):
+        return layer_forward(cfg, lp, x, cos, sin, ffn_fn)
+
     for lp in params["layers"]:
-        x, (k, v), a = layer_forward(cfg, lp, x, cos, sin, ffn_fn)
+        if remat:
+            x, (k, v), a = checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x, (k, v), a = layer(lp, x)
         if a is not None:
             aux = aux + a
         if return_cache:

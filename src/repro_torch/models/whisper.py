@@ -143,7 +143,7 @@ def forward(cfg: ArchConfig, params, tokens, frames):
     """Prefill forward: the decoder's hidden states [B, S, d]."""
     B, S = tokens.shape
     enc_kv = _enc_kv(cfg, params, encode(cfg, params, frames))
-    x = params["emb"][tokens].to(torch.float32)
+    x = cm.embed(params["emb"], tokens)
     for lp, kv in zip(params["dec"], enc_kv):
         x = _dec_layer(cfg, lp, x, kv, None, 0, B, S)
     return cm.layer_norm(x, params["ln_f"], params["bn_f"])
@@ -154,7 +154,7 @@ def decode_step(cfg: ArchConfig, params, token, cache, t_pos):
     ``t_pos`` in place; ek, ev: [L, B, F, H, hd] cross K/V).  Returns
     (logits [B, 1, V], cache)."""
     B = token.shape[0]
-    x = params["emb"][token].to(torch.float32)
+    x = cm.embed(params["emb"], token)
     for i, lp in enumerate(params["dec"]):
         x = _dec_layer(cfg, lp, x, (cache["ek"][i], cache["ev"][i]),
                        (cache["k"][i], cache["v"][i]), int(t_pos), B, 1)

@@ -162,7 +162,7 @@ def forward(cfg: ArchConfig, params, tokens, state=None):
     conv and h, and the input's k/v (the forward fills no cache, as in
     the JAX version)."""
     B, T = tokens.shape
-    x = params["emb"][tokens].to(torch.float32)
+    x = cm.embed(params["emb"], tokens)
     if state is None:
         state = make_state(cfg, B, T, device=x.device)
     pos = torch.arange(T, device=x.device)
@@ -184,7 +184,7 @@ def decode_step(cfg: ArchConfig, params, token, state, t_pos):
     """One-token decode: the mamba recurrences and the shared block's K/V
     caches (written at ``t_pos`` in place).  Returns (logits [B, 1, V],
     state')."""
-    x = params["emb"][token].to(torch.float32)
+    x = cm.embed(params["emb"], token)
     pos = torch.full((1,), int(t_pos), device=x.device)
     cos, sin = cm.rope_tables(pos, cfg.hd, cfg.rope_theta)
     convs, hs = [], []

@@ -788,3 +788,141 @@ def test_lm_path_card_matches_cpu(dev, compute_dtype):
         lg, sg = lm.decode_step(cfg, card, toks[:, t:t + 1], sg, t,
                                 device=dev)
         torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=tol)
+
+
+# K10's backward against its plain version on the same card tensors: within
+# 1e-5 absolute and relative (the order of float32 sums and the exp, both
+# computing in float32 from the same inputs), plus, for bf16 inputs, the
+# rounding of the two float32 results to bf16: 2 * 2**-8 * |want|, one bf16
+# ulp at most.
+def _k10_bwd_case(dev, dtype, B, H, Hkv, Sq, Skv, D, causal, seed=0):
+    from repro_torch.kernels.attention import ops as a_ops
+    q, k, v = _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D, seed)
+    o = a_ops.flash_attention(q, k, v, causal=causal,
+                              out_dtype=torch.float32)
+    do = torch.randn((B, Sq, H, D), generator=torch.Generator().manual_seed(
+        seed + 1)).to(dev).transpose(1, 2)
+    return q, k, v, o, do
+
+
+def _k10_bwd_check(got, want, dtype):
+    from repro_torch.kernels.attention import ref as a_ref
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        w = w.float()
+        lim = K10_TOL * (1 + w.abs())
+        if dtype == torch.bfloat16:
+            lim += 2 * a_ref.BF16_U * w.abs()
+        assert bool(((g.float() - w).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal", [
+    (8, 9, 3, 256, 256, 64, True),        # smollm-135m's training shape
+    (2, 9, 3, 300, 300, 64, True),        # ragged tiles
+    (2, 4, 2, 37, 100, 16, True),         # queries at the end, D 16
+    (1, 8, 8, 130, 130, 128, True),       # D 128, group 1
+    (1, 16, 2, 100, 333, 128, True),      # group 8
+    (2, 32, 32, 128, 128, 112, True),     # zamba2-7b's head size
+    (1, 8, 8, 700, 700, 64, False),       # whisper's encoder, cut
+    (2, 8, 8, 128, 700, 64, False),       # cross-attention, Sq < Skv
+    (1, 6, 2, 90, 20, 112, False),        # Sq > Skv
+])
+def test_flash_backward_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
+                                             D, causal):
+    """dq, dk and dv of the two backward kernels against the plain version
+    on the card, bitwise the same on a second call (no atomics), one
+    launch of each kernel a call."""
+    from repro_torch.kernels.attention import ref as a_ref
+    from repro_torch.kernels.attention.flash_backward import \
+        flash_attention_bwd_cuda
+    q, k, v, o, do = _k10_bwd_case(dev, dtype, B, H, Hkv, Sq, Skv, D, causal)
+    build.reset_launches()
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    assert build.launches()["flash_attention_bwd_dq"] == 1
+    assert build.launches()["flash_attention_bwd_dkdv"] == 1
+    want = a_ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    _k10_bwd_check(got, want, dtype)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_before_launching(dev):
+    from repro_torch.kernels.attention.flash_backward import \
+        flash_attention_bwd_cuda
+    build.reset_launches()
+    q, k, v, o, do = _k10_bwd_case(dev, torch.bfloat16, 1, 16, 1, 64, 64,
+                                   64, True)
+    with pytest.raises(ValueError, match="groups up to 8"):
+        flash_attention_bwd_cuda(q, k, v, o, do, True)
+    q, k, v, o, do = _k10_bwd_case(dev, torch.float32, 1, 2, 1, 64, 32, 64,
+                                   False)
+    with pytest.raises(ValueError, match="offset"):
+        flash_attention_bwd_cuda(q, k, v, o, do, True)
+    wide = torch.zeros((1, 64, 2, 65), device=dev)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_cuda(q, k, v, o, wide.transpose(1, 2), False)
+    assert build.launches()["flash_attention_bwd_dq"] == 0
+
+
+def _train_grads(lm, cfg, params, batch, dev):
+    from torch.utils._pytree import tree_flatten
+    return tree_flatten(lm.loss_and_grad(cfg, params, batch,
+                                         device=dev)[1])[0]
+
+
+TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -8, 2.0 ** -5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_steps_card_match_cpu(dev, compute_dtype, lr=1e-3):
+    """Reduced smollm-135m, three ``train_step``s from the same state and
+    batches: losses (relative) and each leaf's gradient (of its largest
+    magnitude) within ``TRAIN_TOL``; the parameters within 1e-5 (1 + |p|)
+    plus, per step, lr * min(2, 2 tau / |g|) -- AdamW's sign of a
+    gradient entry within the tolerance tau may differ (tests/
+    test_torch_train.py).  The backward kernels ran once per layer a
+    step."""
+    import dataclasses
+
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              compute_dtype=compute_dtype)
+    loss_tol, grad_tol = TRAIN_TOL[compute_dtype]
+    cpu, copt = lm.init_train_state(cfg, 0, device="cpu")
+    card, gopt = lm.init_train_state(cfg, 0, device=dev)
+    allow = None
+    for step in range(3):
+        batch = make_batch(cfg, ShapeConfig("t", 96, 4, "train"), 0, step,
+                           device="cpu")
+        gc = _train_grads(lm, cfg, cpu, batch, "cpu")
+        build.reset_launches()
+        gg = _train_grads(lm, cfg, card, batch, dev)
+        assert build.launches()["flash_attention_bwd_dkdv"] == cfg.n_layers
+        for a, b in zip(gg, gc):
+            assert float((a.cpu() - b).abs().max()) <= \
+                grad_tol * float(b.abs().max()) + 1e-30
+        add = [lr * torch.clamp(2 * grad_tol * g.abs().max() /
+                                g.abs().clamp_min(1e-30), max=2.0)
+               for g in gc]
+        allow = add if allow is None else [a + b for a, b in zip(allow, add)]
+        cpu, copt, mc = lm.train_step(cfg, cpu, copt, batch, lr,
+                                      device="cpu")
+        card, gopt, mg = lm.train_step(cfg, card, gopt, batch, lr,
+                                       device=dev)
+        for key in ("loss", "grad_norm"):
+            assert abs(float(mg[key]) - float(mc[key])) <= \
+                loss_tol * abs(float(mc[key]))
+        for a, b, al in zip(tree_flatten(card)[0], tree_flatten(cpu)[0],
+                            allow):
+            assert bool(((a.cpu() - b).abs() <= 1e-5 * (1 + b.abs()) + al)
+                        .all())

@@ -245,6 +245,35 @@ def test_lm_entry_points_default_to_the_card(no_cuda, name):
             call()
 
 
+@pytest.mark.parametrize("name", ["smollm-135m", "qwen3-moe-30b-a3b",
+                                  "whisper-base"])
+def test_training_entry_points_default_to_the_card(no_cuda, name, tmp_path):
+    """``lm.loss_fn``, ``loss_and_grad``, ``train_step`` and
+    ``init_train_state``, the data
+    pipeline and the training launcher and example run on the card unless
+    asked for the CPU."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline, make_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    cfg = get_config(name).reduced()
+    shape = ShapeConfig("t", 8, 1, "train")
+    params, opt = lm.init_train_state(cfg, 0, device="cpu")
+    batch = make_batch(cfg, shape, 0, 0, device="cpu")
+    for call in (lambda: lm.init_train_state(cfg, 0),
+                 lambda: lm.loss_fn(cfg, params, batch),
+                 lambda: lm.loss_and_grad(cfg, params, batch),
+                 lambda: lm.train_step(cfg, params, opt, batch, 1e-3),
+                 lambda: make_batch(cfg, shape, 0, 0),
+                 lambda: DataPipeline(cfg, shape).next_batch(),
+                 lambda: train.main(["--arch", name, "--reduced", "--steps",
+                                     "1", "--ckpt-dir", str(tmp_path)]),
+                 lambda: train_lm.main(["--steps", "1", "--ckpt-dir",
+                                        str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 class _CudaLike:
     """Stands in for a CUDA tensor on a machine without a card."""
     device = torch.device("cuda")
@@ -273,6 +302,8 @@ def _boom(*_a, **_k):
     (ew_ops, "compact_rows_cuda", lambda x: ew_ops.spike_compact(x, x, 4)),
     (attn_ops, "flash_attention_cuda",
      lambda x: attn_ops.flash_attention(x, x, x)),
+    (attn_ops, "flash_attention_bwd_cuda",
+     lambda x: attn_ops.flash_attention_bwd(x, x, x, x, x)),
 ])
 def test_cuda_tensor_never_falls_back(monkeypatch, mod, cuda_fn, call):
     monkeypatch.setattr(mod, cuda_fn, _boom)

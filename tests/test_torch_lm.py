@@ -284,8 +284,12 @@ def test_lm_main_serves_every_request(capsys):
                                   "zamba2-7b", "whisper-base"])
 def test_other_families_decode_on_cpu_and_training_raises(name, monkeypatch):
     """The MoE, RWKV6, Zamba2 and whisper families initialise and decode
-    on the CPU (their parity with JAX: tests/test_torch_lm_families.py);
-    the training entry points still raise."""
+    on the CPU (their parity with JAX: tests/test_torch_lm_families.py),
+    and train: one CPU ``train_step`` with a finite loss (parity with
+    JAX: tests/test_torch_train.py).  The name is kept from when the
+    training entry points raised."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
     cfg = t_configs.get_config(name).reduced()
     params = t_lm.init_params(cfg, 0, device="cpu")
     state = t_lm.make_decode_state(cfg, 2, 8, device="cpu")
@@ -293,11 +297,15 @@ def test_other_families_decode_on_cpu_and_training_raises(name, monkeypatch):
                                      state, 0, device="cpu")
     assert logits.shape == (2, 1, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
-    for call in (lambda: t_lm.train_step(cfg, None, None, None, 1e-3),
-                 lambda: t_lm.loss_fn(cfg, params, {}),
-                 lambda: t_lm.init_train_state(cfg, 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            call()
+    params, opt = t_lm.init_train_state(cfg, 0, device="cpu")
+    batch = make_batch(cfg, ShapeConfig("t", 16, 2, "train"), 0, 0,
+                       device="cpu")
+    new, opt, metrics = t_lm.train_step(cfg, params, opt, batch, 1e-3,
+                                        device="cpu")
+    assert bool(torch.isfinite(metrics["loss"])) and int(opt.step) == 1
+    from torch.utils._pytree import tree_flatten
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree_flatten(new)[0], tree_flatten(params)[0]))
     # --sim is ported: it runs on the card unless asked for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
