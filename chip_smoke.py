@@ -256,7 +256,8 @@ OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "compact_rows_kernel", "flash_attention_kernel",
                "flash_prefill_kernel", "flash_decode_kernel",
                "flash_decode_f32_kernel", "flash_decode_merge_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+               "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
 DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
@@ -2811,7 +2812,8 @@ def phase_flash_backward(dev):
     device ms, bound (the five products S, dP, dv, dq, dk: 10 D FLOPs a
     pair, at bf16's tensor-core or float32's CUDA-core rate), the plain
     version's ms and SDPA's backward (``scaled_dot_product_attention``
-    under autograd, a yardstick).  Returns the rows by (case, dtype)."""
+    under autograd, a yardstick), and the share of the bound the device
+    ms reach.  Returns the rows by (case, dtype)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ref as a_ref
     from repro_torch.kernels.attention.flash_backward import \
@@ -2870,11 +2872,12 @@ def phase_flash_backward(dev):
                 library=lambda: torch.autograd.grad(
                     lo, (lq, lk, lv), ldo, retain_graph=True),
                 library_syncs=True)
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
             say("backward", f"{name} ({str(dtype)[6:]}): {fmt_row(row)} "
                 "(library: "
                 "scaled_dot_product_attention's backward); "
                 f"{10 * D * pairs / row['device_ms'] / 1e9:.1f} TFLOP/s on "
-                "the device")
+                f"the device, {row['bound_share']:.4f} of the bound")
             rows[name, str(dtype)[6:]] = row
             del lo, lq, lk, lv
     say("backward", f"{len(BWD_CASES)} cases x bf16 and float32 within "

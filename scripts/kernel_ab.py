@@ -34,7 +34,13 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   median kv_len 23: ``k10_f32_decode``), at a 4096-row cache (B 4, H 9,
   Hkv 3, D 64: ``k10_f32_decode_4096``) and at the serve model's 4 x 2048
   causal prefill (``k10_f32_prefill``), and in bf16 at the decode step
-  against 256 and 4096 rows and the same prefill (``k10_bf16_*``).
+  against 256 and 4096 rows and the same prefill (``k10_bf16_*``); K10's
+  backward (``flash_attention_bwd_cuda``, inputs from
+  ``chip_smoke._bwd_inputs``) at smollm-135m's training shape (B 8, H
+  9/3, S 256, D 64, causal: ``k10_bwd_{bf16,f32}``) and at 4 x 2048
+  (``k10_bwd_{bf16,f32}_2048``), bf16 with dO rounded to bf16 as bf16
+  training hands it over and, ``*_f32do``, with phase 27's float32 dO,
+  with ``sha256`` of dq, dk and dv.
   Inputs come from one seed, the same in both trees.  For each: ``ms``
   (CUDA events
   around each of 25 calls, median), ``device_ms`` (a CUDA graph of 50
@@ -87,7 +93,8 @@ from repro_torch.kernels.hines import ops as h_ops
 from repro_torch.kernels.hines import ref as h_ref
 
 build.build_all(("hines", "hh_rhs", "horizon", "compact", "segment_rank",
-                 "flash_attention", "flash_prefill", "flash_decode"))
+                 "flash_attention", "flash_prefill", "flash_decode",
+                 "flash_backward"))
 dev = torch.device("cuda")
 N = cs.N_MAIN
 
@@ -226,6 +233,37 @@ for key, dtype, shape, calls in (
          (4, 9, 3, 2048, 2048, 64, None), 200)):
     out[key] = k10(dtype, *shape, calls)
 
+from repro_torch.kernels.attention.flash_backward import \
+    flash_attention_bwd_cuda
+
+
+def k10_bwd(dtype, B, H, Hkv, Sq, Skv, D, calls, bf16_do):
+    q, k, v, o, do = cs._bwd_inputs(dev, dtype, B, H, Hkv, Sq, Skv, D, True)
+    if bf16_do:
+        do = do.to(torch.bfloat16).float()
+    fn = lambda: flash_attention_bwd_cuda(q, k, v, o, do, True)
+    got = fn()
+    want = a_ref.flash_attention_bwd_ref(q, k, v, o, do, True)
+    return dict(
+        max_abs_err=max(float((g.float() - w.float()).abs().max())
+                        for g, w in zip(got, want)),
+        ms=cs.cuda_ms(fn), device_ms=cs.device_ms(fn),
+        host_us=host_us(fn, calls=calls),
+        sha256=hashlib.sha256(b"".join(
+            x.float().cpu().contiguous().numpy().tobytes()
+            for x in got)).hexdigest())
+
+
+SMOLLM, LONG = (8, 9, 3, 256, 256, 64), (4, 9, 3, 2048, 2048, 64)
+for key, dtype, shape, calls, bf16_do in (
+        ("k10_bwd_bf16", torch.bfloat16, SMOLLM, 200, True),
+        ("k10_bwd_bf16_2048", torch.bfloat16, LONG, 20, True),
+        ("k10_bwd_bf16_f32do", torch.bfloat16, SMOLLM, 200, False),
+        ("k10_bwd_bf16_2048_f32do", torch.bfloat16, LONG, 20, False),
+        ("k10_bwd_f32", torch.float32, SMOLLM, 200, False),
+        ("k10_bwd_f32_2048", torch.float32, LONG, 20, False)):
+    out[key] = k10_bwd(dtype, *shape, calls, bf16_do)
+
 
 def launches():
     n = build.launches()
@@ -277,7 +315,9 @@ for src, kern in (("hines", "hines_factor_kernel"),
                   ("flash_attention", "flash_attention_kernel"),
                   ("flash_decode", "flash_decode_f32_kernel"),
                   ("flash_decode", "flash_decode_kernel"),
-                  ("flash_prefill", "flash_prefill_kernel")):
+                  ("flash_prefill", "flash_prefill_kernel"),
+                  ("flash_backward", "flash_bwd_dq"),
+                  ("flash_backward", "flash_bwd_dkdv")):
     entry = None
     for line in build.ptxas_log(src).splitlines():
         if "Compiling entry function" in line:

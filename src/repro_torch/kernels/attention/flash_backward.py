@@ -4,9 +4,15 @@ No TPU kernel stands behind it: the JAX package differentiates its jnp
 attention (``repro/models/attention.py`` ``chunked_causal_attention`` and
 ``bidirectional_attention``).  Two kernels, launched in order on the
 current stream: ``flash_bwd_dq`` (dq, and the row statistics lse and D_i
-into a ``[B, H, Sq]`` float32 scratch) and ``flash_bwd_dkdv`` (dk and dv,
-a block's GQA group summed in a fixed order: no atomics).  They count
-under ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv``.
+into a ``[B, H, Sqp]`` float32 scratch, Sqp = Sq rounded up to 64; for
+bf16 inputs also dO's three bf16 pieces into a ``[3, B, H, Sqp, D]``
+scratch and a ``[B, H, Sqp / 64]`` int32 flag per query tile) and
+``flash_bwd_dkdv`` (dk and dv, a block per query head, the GQA group's
+blocks one thread-block cluster that sums their partials in head order:
+every sum in a fixed order).  bf16 inputs multiply on the tensor cores
+at float32 accuracy, float32 inputs on the CUDA cores (the source's
+header).  They count under ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkdv``.
 
 Inputs as the forward wrapper takes them (``flash.py``): q, k and v
 float32 or bfloat16 views with a contiguous head dimension and 16-byte
@@ -30,10 +36,11 @@ _I64, _I32, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VIEW = [_P, _I64, _I64, _I64]               # pointer and three strides
 _LAUNCHERS = {
-    "dq": ("flash_bwd_dq_launch", _VIEW * 6 + [_P, _P] + [_I32] * 9 + [_P]),
+    "dq": ("flash_bwd_dq_launch", _VIEW * 6 + [_P] * 4 + [_I32] * 9 + [_P]),
     "dkdv": ("flash_bwd_dkdv_launch",
-             _VIEW * 6 + [_P, _P] + [_I32] * 9 + [_P]),
+             _VIEW * 6 + [_P] * 4 + [_I32] * 9 + [_P]),
 }
+_TILE = 64                                   # the kernels' query tile
 
 
 def _launcher(kind):
@@ -90,18 +97,25 @@ def flash_attention_bwd_cuda(q, k, v, o, do, causal=True):
     dv = _out(B, Skv, Hkv, D, q.dtype, dev)
     if B * H * Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=dev)
+    n_tiles = -(-Sq // _TILE)
+    Sqp = n_tiles * _TILE
+    stats = torch.empty((2, B, H, Sqp), dtype=torch.float32, device=dev)
+    scratch = [build.ptr(stats[0]), build.ptr(stats[1]), None, None]
+    if q.dtype == torch.bfloat16:
+        split = torch.empty((3, B, H, Sqp, D), dtype=torch.bfloat16,
+                            device=dev)
+        flags = torch.empty((B, H, n_tiles), dtype=torch.int32, device=dev)
+        scratch[2:] = build.ptr(split), build.ptr(flags)
     shape = (B, H, Hkv, Sq, Skv, D, offset, int(causal), _CODES[q.dtype])
     stream = build.stream_ptr(dev)
-    lse, dsum = build.ptr(stats[0]), build.ptr(stats[1])
     err = _launcher("dq")(*args_q, *args_k, *args_v, *args_o, *args_do,
-                          *_view("dq", dq, q.dtype, dev), lse, dsum, *shape,
+                          *_view("dq", dq, q.dtype, dev), *scratch, *shape,
                           stream)
     build.check(err, "flash_attention_bwd_dq")
     build.count("flash_attention_bwd_dq")
     err = _launcher("dkdv")(*args_q, *args_k, *args_v, *args_do,
                             *_view("dk", dk, q.dtype, dev),
-                            *_view("dv", dv, q.dtype, dev), lse, dsum,
+                            *_view("dv", dv, q.dtype, dev), *scratch,
                             *shape, stream)
     build.check(err, "flash_attention_bwd_dkdv")
     build.count("flash_attention_bwd_dkdv")

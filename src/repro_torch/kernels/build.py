@@ -18,8 +18,10 @@ and ``flash_attention.cu`` (register-tiled); bfloat16 inputs run
 ``flash_decode.cu`` (``mma.sync``, one block per GQA group) and
 ``flash_prefill.cu`` (``wgmma``).  All four fill their shared-memory tiles
 with ``cp.async``; none uses TMA, so no source links the driver API.
-K10's gradient, ``flash_backward.cu``, is two CUDA-core kernels (dq, then
-dk and dv) that a training step's backward pass launches through
+K10's gradient, ``flash_backward.cu``, is two kernels (dq, then dk and
+dv; ``mma.sync`` for bf16 inputs, the CUDA cores for float32 ones, the
+dk/dv blocks of a GQA group one thread-block cluster) that a training
+step's backward pass launches through
 ``kernels/attention/ops.py::FlashAttentionFn``.
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises when

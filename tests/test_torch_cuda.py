@@ -794,23 +794,35 @@ def test_lm_path_card_matches_cpu(dev, compute_dtype):
 # 1e-5 absolute and relative (the order of float32 sums and the exp, both
 # computing in float32 from the same inputs), plus, for bf16 inputs, the
 # rounding of the two float32 results to bf16: 2 * 2**-8 * |want|, one bf16
-# ulp at most.
-def _k10_bwd_case(dev, dtype, B, H, Hkv, Sq, Skv, D, causal, seed=0):
+# ulp at most.  Cases with data scaled by c state the absolute part in the
+# gradient's units: 1e-5 (c + |want|).
+def _k10_bwd_case(dev, dtype, B, H, Hkv, Sq, Skv, D, causal, seed=0,
+                  mode="plain"):
+    """q, k, v, o and dO of a backward case, and each gradient's scale.
+    ``mode`` "bf16_do": dO exactly bf16, as bf16 training hands it over
+    (the kernels skip its zero pieces); "scaled": v and dO times 1e3, so
+    that dO's pieces lie near 1e3 and dS's near 1e6 (dq, dk scale 1e6, dv
+    1e3)."""
     from repro_torch.kernels.attention import ops as a_ops
     q, k, v = _k10_case(dev, dtype, B, H, Hkv, Sq, Skv, D, seed)
+    c = 1e3 if mode == "scaled" else 1.0
+    if mode == "scaled":
+        v = (v.float() * c).to(dtype)
     o = a_ops.flash_attention(q, k, v, causal=causal,
                               out_dtype=torch.float32)
     do = torch.randn((B, Sq, H, D), generator=torch.Generator().manual_seed(
-        seed + 1)).to(dev).transpose(1, 2)
-    return q, k, v, o, do
+        seed + 1)).to(dev).transpose(1, 2) * c
+    if mode == "bf16_do":
+        do = do.to(torch.bfloat16).float()
+    return q, k, v, o, do, (c * c, c * c, c)
 
 
-def _k10_bwd_check(got, want, dtype):
+def _k10_bwd_check(got, want, dtype, scales=(1.0, 1.0, 1.0)):
     from repro_torch.kernels.attention import ref as a_ref
-    for g, w in zip(got, want):
+    for g, w, c in zip(got, want, scales):
         assert g.dtype == dtype and g.shape == w.shape
         w = w.float()
-        lim = K10_TOL * (1 + w.abs())
+        lim = K10_TOL * (c + w.abs())
         if dtype == torch.bfloat16:
             lim += 2 * a_ref.BF16_U * w.abs()
         assert bool(((g.float() - w).abs() <= lim).all())
@@ -818,33 +830,44 @@ def _k10_bwd_check(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal", [
-    (8, 9, 3, 256, 256, 64, True),        # smollm-135m's training shape
-    (2, 9, 3, 300, 300, 64, True),        # ragged tiles
-    (2, 4, 2, 37, 100, 16, True),         # queries at the end, D 16
-    (1, 8, 8, 130, 130, 128, True),       # D 128, group 1
-    (1, 16, 2, 100, 333, 128, True),      # group 8
-    (2, 32, 32, 128, 128, 112, True),     # zamba2-7b's head size
-    (1, 8, 8, 700, 700, 64, False),       # whisper's encoder, cut
-    (2, 8, 8, 128, 700, 64, False),       # cross-attention, Sq < Skv
-    (1, 6, 2, 90, 20, 112, False),        # Sq > Skv
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,mode", [
+    (8, 9, 3, 256, 256, 64, True, "plain"),   # smollm-135m's training shape
+    (2, 9, 3, 300, 300, 64, True, "plain"),   # ragged tiles
+    (2, 4, 2, 37, 100, 16, True, "plain"),    # queries at the end, D 16
+    (1, 8, 8, 130, 130, 128, True, "plain"),  # D 128, group 1
+    (1, 16, 2, 100, 333, 128, True, "plain"),  # group 8
+    (2, 32, 32, 128, 128, 112, True, "plain"),  # zamba2-7b's head size
+    (1, 8, 8, 700, 700, 64, False, "plain"),  # whisper's encoder, cut
+    (2, 8, 8, 128, 700, 64, False, "plain"),  # cross-attention, Sq < Skv
+    (1, 6, 2, 90, 20, 112, False, "plain"),   # Sq > Skv
+    # clusters of 2, 4 and 8 blocks at D 64 and 128, ragged tiles
+    (1, 4, 2, 77, 150, 64, True, "plain"),
+    (2, 8, 2, 130, 130, 64, False, "plain"),
+    (1, 16, 2, 100, 197, 64, True, "plain"),
+    (1, 4, 2, 150, 150, 128, False, "plain"),
+    (1, 8, 2, 90, 211, 128, True, "plain"),
+    (2, 8, 1, 129, 129, 128, True, "plain"),
+    (8, 9, 3, 256, 256, 64, True, "bf16_do"),  # dO's mid and lo pieces zero
+    (2, 9, 3, 300, 300, 64, True, "scaled"),  # the split at large magnitudes
+    (1, 16, 2, 100, 333, 128, True, "scaled"),
 ])
 def test_flash_backward_kernel_matches_plain(dev, dtype, B, H, Hkv, Sq, Skv,
-                                             D, causal):
+                                             D, causal, mode):
     """dq, dk and dv of the two backward kernels against the plain version
-    on the card, bitwise the same on a second call (no atomics), one
-    launch of each kernel a call."""
+    on the card, bitwise the same on a second call (every sum in a fixed
+    order), one launch of each kernel a call."""
     from repro_torch.kernels.attention import ref as a_ref
     from repro_torch.kernels.attention.flash_backward import \
         flash_attention_bwd_cuda
-    q, k, v, o, do = _k10_bwd_case(dev, dtype, B, H, Hkv, Sq, Skv, D, causal)
+    q, k, v, o, do, scales = _k10_bwd_case(dev, dtype, B, H, Hkv, Sq, Skv,
+                                           D, causal, mode=mode)
     build.reset_launches()
     got = flash_attention_bwd_cuda(q, k, v, o, do, causal)
     torch.cuda.synchronize()
     assert build.launches()["flash_attention_bwd_dq"] == 1
     assert build.launches()["flash_attention_bwd_dkdv"] == 1
     want = a_ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
-    _k10_bwd_check(got, want, dtype)
+    _k10_bwd_check(got, want, dtype, scales)
     again = flash_attention_bwd_cuda(q, k, v, o, do, causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -854,12 +877,12 @@ def test_flash_backward_refuses_before_launching(dev):
     from repro_torch.kernels.attention.flash_backward import \
         flash_attention_bwd_cuda
     build.reset_launches()
-    q, k, v, o, do = _k10_bwd_case(dev, torch.bfloat16, 1, 16, 1, 64, 64,
-                                   64, True)
+    q, k, v, o, do, _ = _k10_bwd_case(dev, torch.bfloat16, 1, 16, 1, 64,
+                                      64, 64, True)
     with pytest.raises(ValueError, match="groups up to 8"):
         flash_attention_bwd_cuda(q, k, v, o, do, True)
-    q, k, v, o, do = _k10_bwd_case(dev, torch.float32, 1, 2, 1, 64, 32, 64,
-                                   False)
+    q, k, v, o, do, _ = _k10_bwd_case(dev, torch.float32, 1, 2, 1, 64, 32,
+                                      64, False)
     with pytest.raises(ValueError, match="offset"):
         flash_attention_bwd_cuda(q, k, v, o, do, True)
     wide = torch.zeros((1, 64, 2, 65), device=dev)[..., 1:]

@@ -196,3 +196,170 @@ def test_cuda_backward_wrapper_refuses_host_tensors_and_head_sizes():
         flash_attention_bwd_cuda(q, q, q, q, q)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_bwd_cuda(q.double(), q, q, q, q)
+
+
+# The bf16 backward kernels (csrc/flash_backward.cu) multiply on the tensor
+# cores: a float32 operand x (P, dS, dO) is split into three bf16 pieces,
+# each piece times a bf16 operand is exact in float32, and the pieces'
+# products are summed in float32.  These tests hold that arithmetic on the
+# CPU; the kernels themselves are held to the plain version on the card.
+DV_TERMS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))   # P^T dO pieces
+
+
+def _split(x, pieces=3):
+    """x's bf16 pieces, as float32 tensors, the way the kernels split a
+    float32 operand: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+    mid)."""
+    out = []
+    for _ in range(pieces):
+        p = x.bfloat16().float()
+        out.append(p)
+        x = x - p
+    return out
+
+
+def _split_sums_bwd(q, k, v, o, do, causal, pieces=3, dv_terms=DV_TERMS):
+    """(dq, dk, dv) in float32 as the bf16 kernels sum them: S = Q K^T of
+    bf16 operands; dP from dO's pieces times V; dq and dk from dS's
+    pieces times K and Q; dv from ``dv_terms`` (piece of P, piece of dO);
+    every product of bf16 pieces summed in float32."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    offset = t_ref.bwd_geometry(q, k, causal)
+    s, valid, kk = t_ref._scores(q, k, causal, offset, Skv)
+    vv = v.repeat_interleave(g, dim=1).float()
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
+    dsum = (do * o).sum(dim=-1, keepdim=True)
+    dop = _split(do, pieces)
+    ds = p * (sum(x @ vv.transpose(-1, -2) for x in dop) - dsum)
+    dsp, pp = _split(ds, pieces), _split(p, pieces)
+    scale = 1.0 / (D ** 0.5)
+    dq = sum(x @ kk for x in dsp) * scale
+    dk = sum(x.transpose(-1, -2) @ q.float() for x in dsp) * scale
+    dv = sum(pp[a].transpose(-1, -2) @ dop[b] for a, b in dv_terms
+             if a < pieces and b < pieces)
+
+    def group_sum(x):
+        return x.reshape(B, Hkv, g, Skv, D).sum(dim=2)
+
+    return dq, group_sum(dk), group_sum(dv)
+
+
+def test_three_bf16_pieces_rebuild_float32():
+    """hi + mid + lo rebuilds float32 values to 2**-24 of themselves --
+    random, next to powers of two, and at 1e-30 and 1e30 -- with each
+    piece a bf16 value and each subtraction exact in float32; two pieces
+    leave up to 2**-17."""
+    rng = np.random.default_rng(4)
+    ulp = np.float32(2.0 ** -23)
+    twos = np.float32(2.0) ** np.arange(-20, 21, dtype=np.float32)
+    near = np.concatenate([twos * (1 + ulp * j) for j in (-3, -1, 0, 1, 3)] +
+                          [twos * (1 - ulp / 2 * j) for j in (1, 3)])
+    x = np.concatenate([
+        rng.standard_normal(20000).astype(np.float32),
+        rng.uniform(-1, 1, 20000).astype(np.float32) *
+        np.float32(10.0) ** rng.integers(-30, 31, 20000).astype(np.float32),
+        near, -near, np.float32([1e-30, -1e-30, 1e30, -1e30, 3e-30, 7e29])])
+    t = torch.from_numpy(x)
+    hi, mid, lo = _split(t)
+    for piece in (hi, mid, lo):
+        assert torch.equal(piece.bfloat16().float(), piece)
+    r = t.double() - hi.double()
+    assert torch.equal((t - hi).double(), r)
+    assert torch.equal((t - hi - mid).double(), r - mid.double())
+    err = (hi.double() + mid.double() + lo.double() - t.double()).abs()
+    assert bool((err <= 2.0 ** -24 * t.double().abs()).all())
+    err2 = (hi.double() + mid.double() - t.double()).abs()
+    assert float((err2 / t.double().abs()).max()) > 2.0 ** -24
+    assert bool((err2 <= 2.0 ** -17 * t.double().abs()).all())
+
+
+def _bf16_case(B, H, Hkv, Sq, Skv, D, causal, mode, seed=5):
+    """bf16 q, k, v, the forward's float32 o and a float32 dO from numpy:
+    ``mode`` "plain"; "bf16_do" (dO exactly bf16, as bf16 training hands
+    it over); "scaled" (v and dO times 1e3: dO's pieces near 1e3, dS's
+    near 1e6)."""
+    q, k, v, do = _rand(seed, (B, H, Sq, D), (B, Hkv, Skv, D),
+                        (B, Hkv, Skv, D), (B, H, Sq, D), dtype=np.float32)
+    c = 1e3 if mode == "scaled" else 1.0
+    q, k = (torch.from_numpy(x).bfloat16() for x in (q, k))
+    v = (torch.from_numpy(v) * c).bfloat16()
+    o = t_ref.flash_attention_ref(q, k, v, causal, out_dtype=torch.float32)
+    do = torch.from_numpy(do) * c
+    if mode == "bf16_do":
+        do = do.bfloat16().float()
+    return q, k, v, o, do, (c * c, c * c, c)
+
+
+def _used(got, want, scales):
+    """The largest share of the card test's float32 limit, 1e-5 (1 +
+    |want|) in units of each gradient's scale, that an element uses."""
+    return max(float(((g - w).abs() / (1e-5 * (c + w.abs()))).max())
+               for g, w, c in zip(got, want, scales))
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,mode", [
+    (1, 3, 1, 256, 256, 64, True, "plain"),     # smollm training, one kv head
+    (1, 3, 1, 256, 256, 64, True, "bf16_do"),
+    (1, 3, 1, 256, 256, 64, True, "scaled"),
+    (1, 2, 1, 300, 300, 16, True, "plain"),     # D 16 ragged
+    (1, 4, 4, 128, 128, 112, True, "plain"),    # zamba2's head size
+    (1, 8, 1, 130, 130, 128, True, "plain"),    # group 8 at D 128
+    (1, 2, 2, 300, 300, 64, False, "plain"),    # whisper's encoder, cut
+    (1, 2, 2, 128, 300, 64, False, "scaled"),   # cross-attention
+])
+def test_split_sums_hold_the_plain_backward(B, H, Hkv, Sq, Skv, D, causal,
+                                            mode):
+    """The bf16 kernels' sums, emulated in float32, hold
+    ``ref.flash_attention_bwd_ref`` (float32 from the same bf16 inputs)
+    within the card test's unchanged float32 limit: three pieces and the
+    six P^T dO products.  At the causal Sq 256 shape, where column 0 sums
+    the most P, two pieces, or three with only dv's hi-dO products, miss
+    it: that is why the kernels split in three."""
+    q, k, v, o, do, scales = _bf16_case(B, H, Hkv, Sq, Skv, D, causal, mode)
+    want = t_ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         o, do, causal)
+    assert _used(_split_sums_bwd(q, k, v, o, do, causal), want, scales) <= 1
+    if Sq == 256 and causal and mode == "plain":
+        assert _used(_split_sums_bwd(q, k, v, o, do, causal, pieces=2),
+                     want, scales) > 1
+        assert _used(_split_sums_bwd(q, k, v, o, do, causal,
+                                     dv_terms=DV_TERMS[:3]), want,
+                     scales) > 1
+
+
+def _round_toward_zero(x):
+    """float64 x to float32, rounded toward zero."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def test_truncating_accumulation_stays_within_the_limit():
+    """The tensor cores' float32 accumulation need not round to nearest.
+    Even if every mma.sync rounded its sum toward zero, dq summed as the
+    kernel orders it -- 16 kv columns a product, dS's three pieces in
+    turn, 1024 columns -- holds the plain version within 0.5 of the card
+    test's float32 limit."""
+    B, H, S, D = 1, 1, 1024, 64
+    q, k, v, o, do, _ = _bf16_case(B, H, H, S, S, D, True, "plain")
+    want = t_ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         o, do, True)[0][0, 0].double()
+    s, valid, kk = t_ref._scores(q, k, True, 0, S)
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
+    ds = p * (do @ v.float().transpose(-1, -2) - (do * o).sum(-1, True))
+    pieces = [x[0, 0].double().numpy() for x in _split(ds)]
+    kd = kk[0, 0].double().numpy()
+    acc = np.zeros((S, D), np.float32)
+    for c0 in range(0, S, 16):
+        for x in pieces:
+            acc = _round_toward_zero(acc.astype(np.float64) +
+                                     x[:, c0:c0 + 16] @ kd[c0:c0 + 16])
+    got = torch.from_numpy(acc.astype(np.float64)) * (1.0 / D ** 0.5)
+    assert _used([got], [want], [1.0]) <= 0.5

@@ -99,12 +99,34 @@ def test_kernel_sources_use_no_library_kernels(path):
 
 
 @pytest.mark.parametrize("name,product", [("flash_prefill", "wgmma.mma_async"),
-                                          ("flash_decode", "mma.sync")])
+                                          ("flash_decode", "mma.sync"),
+                                          ("flash_backward", "mma.sync")])
 def test_k10_bf16_kernels_use_tensor_cores_and_async_copies(name, product):
     text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
     assert product in text and "cp.async.cg.shared.global" in text
     assert "__nv_bfloat16" in text and "flash_attention_ref" not in text
 
+
+
+def _code(text):
+    """C++ source without its comments."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+
+
+def test_k10_backward_is_deterministic_and_keeps_float32():
+    """K10's backward sums in a fixed order (no atomic operation: a second
+    call is bitwise the first), converts nothing to TF32, sums the GQA
+    group in a thread-block cluster, and keeps the float32 kernels on the
+    CUDA cores: explicit fmaf, no tensor-core product."""
+    text = _code((ROOT / "src" / "repro_torch" / "csrc" /
+                  "flash_backward.cu").read_text())
+    for word in ("atomic", "tf32", "cvt.rna"):
+        assert word not in text.lower(), word
+    assert "cudaLaunchAttributeClusterDimension" in text
+    assert "ld.shared::cluster" in text and "barrier.cluster" in text
+    f32 = text[text.index("void __launch_bounds__(THREADS) "
+                          "flash_bwd_dq_kernel("):text.index("int size_smem(")]
+    assert "fmaf(" in f32 and "mma" not in f32 and "ldsm" not in f32
 
 def _f32_kernel_sources():
     """The float32 K10 kernels' code: all of ``flash_attention.cu``, and
