@@ -69,8 +69,10 @@ Phases, each reported on its own lines:
      at M = 4096 and 4097, transposed, in contiguous rows and as views
      1-15 bytes past an aligned base;
  14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
-     the single-host ``run_fap_vardt(step_budget=8)``, and four card ranks
-     == four CPU ranks bitwise (spike trains, steps, final states);
+     the global round (``optimized=False``) == the single-host
+     ``run_fap_vardt(step_budget=8)``, and four card ranks == four CPU
+     ranks bitwise for ``sparse`` and for the global round (spike trains,
+     steps, final states);
  15. flash attention K10's four kernels against their plain version on
      the card, bf16 (bf16 and float32 out) and float32, each case checking
      which kernel ran (all four must): the serve path's shapes (prefill
@@ -126,7 +128,7 @@ Phases, each reported on its own lines:
      final ``zn[:, 0]``), launching K1, K2, K4 and K5; checkpoint bytes, ms
      per save and per restore;
  23. ``SimService`` at full width: 4 lanes of phase 3's network (65,536
-     neurons a round), 8 tenants of 6 ms with currents in [i_active,
+     neurons a round), 8 tenants of 3 ms with currents in [i_active,
      i_burst] of the branched cell, QoS class 0 capped at N/4, the fused
      horizon and tenant 1 poisoned at its round 4: every request
      completes, at least one quarantine, tenant 1 and tenant 0 bitwise
@@ -135,7 +137,10 @@ Phases, each reported on its own lines:
      wall second, admission waits, peak memory;
  24. card against CPU at N=64, bitwise: kill/resume and poison rollback
      at 5 ms (each also equal to the plain run), and a 3-lane, 5-tenant
-     service of 3 ms with a poisoned tenant; then the SPMD round at
+     service of 3 ms with a poisoned tenant, and its first 3 tenants over
+     two compact runners (compact batch at N/2 and fan-out at spike cap 4,
+     wheel; the incremental scatter horizon, and the fused one), the rows
+     forms of K6 and K7 launched; then the SPMD round at
      N=256, 5 ms on four card ranks (sparse, compact, incremental
      horizon) killed and resumed on four ranks and on two (the elastic
      reseed), bitwise the uninterrupted run;
@@ -174,12 +179,31 @@ Phases, each reported on its own lines:
      hybrid, audio; float32) and the dense one in bf16 compute: 3
      ``train_step``s card against CPU, gradients, losses, grad norms and
      parameters within stated tolerances;
+ 30. the global SPMD round (``build_fap_round(optimized=False)``, the
+     paper-faithful baseline) at full width and 6 ms, four ranks on the
+     card, ``queue="dense"``: against phase 12's ``sparse`` run, spike
+     counts per neuron, events, steps, resets and rounds exact, nothing
+     dropped, spike times within 1e-9 ms (and whether all is bitwise);
+     K1, K2 and K4 launched on every rank; ms per round and each
+     channel's bytes and host wall per round beside phase 12's;
+ 31. ``SimService`` at full width over the active-set runner: phase 23's
+     lanes, tenants, currents, QoS classes, t_end and poisoned tenant,
+     ``batch="compact", batch_cap=N/4, fanout="compact"`` at phase 4's
+     spike cap, ``queue="wheel"``, the fused horizon: every request
+     completes, the poisoned tenant is quarantined and retried, tenants 1
+     and 0 bitwise equal to their solo services, the rows forms of K6 and
+     K7 and K8 launched; both rows kernels against their plain versions,
+     bitwise, on the busiest masks the service gave them and on masks of
+     0-100 %, with their times and bounds; ms per service round and
+     tenant-ms per wall second beside phase 23's;
  21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path and of phase 25's
      four families, and of that many full-width smollm-135m training
      steps (device busy share, busiest kernels).
 
+Phases 3, 4, 9, 18 and 22 run 6 ms (``--t-end``).  Each phase's wall is
+printed as it ends (``[wall]``) and all of them on the ``[done]`` line.
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
 last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -223,6 +247,11 @@ REPLACES = {
     "horizon_score": "src/repro/kernels/event_wheel/event_wheel.py:38",
     "compact_ids": "src/repro/kernels/event_wheel/event_wheel.py:115",
     "compact_gather": "src/repro/kernels/event_wheel/event_wheel.py:176",
+    # the rows forms: what JAX's vmap over the service's tenants makes of
+    # the same two Pallas kernels
+    "compact_ids_rows": "src/repro/kernels/event_wheel/event_wheel.py:115",
+    "compact_gather_rows":
+        "src/repro/kernels/event_wheel/event_wheel.py:176",
     "segment_rank": "src/repro/kernels/event_wheel/event_wheel.py:234",
     "compact_rows": "src/repro/kernels/event_wheel/event_wheel.py:256",
     "flash_attention_f32_decode": "src/repro/kernels/attention/flash.py:65",
@@ -238,6 +267,8 @@ SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hh_rhs": f"{SRC}/hh_rhs.cu", "horizon_score": f"{SRC}/horizon.cu",
           "compact_ids": f"{SRC}/compact.cu",
           "compact_gather": f"{SRC}/compact.cu",
+          "compact_ids_rows": f"{SRC}/compact.cu",
+          "compact_gather_rows": f"{SRC}/compact.cu",
           "segment_rank": f"{SRC}/segment_rank.cu",
           "compact_rows": f"{SRC}/compact.cu",
           "flash_attention_f32_decode": f"{SRC}/flash_decode.cu",
@@ -252,7 +283,8 @@ ROW_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
                "hines_solve_kernel",
                "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
-               "compact_gather_kernel", "segment_rank_kernel",
+               "compact_gather_kernel", "compact_ids_rows_kernel",
+               "compact_gather_rows_kernel", "segment_rank_kernel",
                "compact_rows_kernel", "flash_attention_kernel",
                "flash_prefill_kernel", "flash_decode_kernel",
                "flash_decode_f32_kernel", "flash_decode_merge_kernel",
@@ -279,6 +311,13 @@ SPMD_RUNS = {
                        horizon="incremental"),
 }
 FULL_STACK_PATH = ("compact_ids", "compact_gather", "segment_rank")
+GLOBAL_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs")
+# the service over the active-set runner (phase 31), and at N = 64 (24)
+COMPACT_SERVICE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
+                        "horizon_score", "compact_ids_rows",
+                        "compact_gather_rows", "segment_rank")
+COMPACT_SMALL = dict(batch="compact", fanout="compact", spike_cap=4,
+                     queue="wheel")
 BF16_FLOPS = 989e12            # H100 SXM bf16 on the tensor cores, dense
 #                                (NVIDIA data sheet)
 LM_ARCH = "smollm-135m"        # the serve CLI's default --arch
@@ -367,38 +406,77 @@ def launch_floor_ms():
     return device_ms(lambda: one.add_(1.0))
 
 
-def profiled_device_ms(fn, calls=20):
+def profiled_device_ms(fn, calls=20, tries=3):
     """Device time of one call of a function that a CUDA graph cannot
     capture, because it waits for the card (``torch.nonzero``'s count,
     ``torch.linalg.solve``'s error check): ``torch.profiler``'s summed
-    device time of the kernels it runs, over ``calls`` calls."""
+    device time of the kernels it runs, over ``calls`` calls.  A trace
+    that holds no device time is taken again, ``tries`` times in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / calls / 1e3
+    raise AssertionError(f"the profiler saw no device time in {tries} "
+                         "traces")
+
+
+def queued_device_ms(fn, host_ms, calls=20, tries=4):
+    """Device time of one call of a function that neither a CUDA graph
+    nor the profiler sees whole, but that does not wait for the card
+    (autograd's backward, whose kernels its engine's thread launches): a
+    spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    queues ``calls`` calls, and CUDA events around them time the calls
+    back to back.  The spin lasts 3x the host's time for the calls
+    (``host_ms`` each); it is doubled until the start event is still
+    pending when the last call is queued, so no host gap is in the
+    figure."""
+    fn()
+    torch.cuda.synchronize()
+    spin_ms = max(20.0, 3 * calls * host_ms)
+    for _ in range(tries):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * 2e6))     # >= spin_ms at <= 2 GHz
+        a.record()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA"))
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / calls / 1e3
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / calls
+        spin_ms *= 2
+    raise AssertionError(f"the host did not queue {calls} calls within a "
+                         f"{spin_ms / 2:.0f} ms spin")
 
 
 def kernel_row(err, fn, plain, nbytes, ops, rate=FP64_FLOPS, library=None,
-               library_syncs=False):
+               library_device=None):
     """A kernel's line of the ``kernels`` table: its error against the
     plain version, per-call and device times, the plain version's and the
-    library call's times, and the bound of ``nbytes`` and ``ops``."""
+    library call's times, and the bound of ``nbytes`` and ``ops``.  The
+    library call's device time comes from ``device_ms``, or from
+    ``library_device`` (``profiled_device_ms`` for a call that waits for
+    the card, ``"queued"`` for ``queued_device_ms``)."""
     bound, by = bound_ms(nbytes, ops, rate)
     row = dict(max_abs_err=err, ms=cuda_ms(fn), device_ms=device_ms(fn),
                plain_ms=cuda_ms(plain), bound_ms=bound, bound_by=by,
                library_ms=None, library_device_ms=None)
     if library is not None:
         row["library_ms"] = cuda_ms(library)
-        row["library_device_ms"] = (profiled_device_ms if library_syncs
-                                    else device_ms)(library)
+        if library_device == "queued":
+            row["library_device_ms"] = queued_device_ms(library,
+                                                        row["library_ms"])
+        else:
+            row["library_device_ms"] = (library_device or device_ms)(library)
     return row
 
 
@@ -668,32 +746,30 @@ def _same_host(a, b):
 
 # ---------------------------------------------------------------- phase 4 --
 class _Recorder:
-    """Keeps copies of the spike masks that reach K7 and the key batches
-    that reach K8 on the active path (one device copy per call, no host
-    synchronisation), so phase 5 can check the kernels on the path's own
-    inputs.  The wrapped dispatchers still launch and count as before."""
+    """Keeps copies of the first argument (a mask or a key batch) of the
+    named dispatchers of ``kernels.event_wheel.ops`` on a path, one device
+    copy per call and no host synchronisation, so that a later phase can
+    check the kernels on the path's own inputs (``seen[name]``).  The
+    wrapped dispatchers still launch and count as before."""
 
-    def __init__(self):
+    def __init__(self, *names):
         from repro_torch.kernels.event_wheel import ops as ew_ops
-        self.ops, self.masks, self.keys = ew_ops, [], []
-        self.real = (ew_ops.compact_gather, ew_ops.segment_rank)
+        self.ops = ew_ops
+        self.real = {k: getattr(ew_ops, k) for k in names}
+        self.seen = {k: [] for k in names}
 
     def __enter__(self):
-        gather, rank = self.real
+        for name, fn in self.real.items():
+            def rec(x, *a, _name=name, _fn=fn, **kw):
+                self.seen[_name].append(x.clone())
+                return _fn(x, *a, **kw)
 
-        def rec_gather(mask, table, cap, **kw):
-            self.masks.append(mask.clone())
-            return gather(mask, table, cap, **kw)
-
-        def rec_rank(key, max_rank):
-            self.keys.append(key.clone())
-            return rank(key, max_rank)
-
-        self.ops.compact_gather, self.ops.segment_rank = rec_gather, rec_rank
+            setattr(self.ops, name, rec)
         return self
 
     def __exit__(self, *exc):
-        self.ops.compact_gather, self.ops.segment_rank = self.real
+        for name, fn in self.real.items():
+            setattr(self.ops, name, fn)
 
     @staticmethod
     def busiest(batches, valid):
@@ -709,7 +785,7 @@ def phase_active(dev, t_end, dense):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _Recorder() as seen:
+    with _Recorder("compact_gather", "segment_rank") as seen:
         run = _runner(dev, N_MAIN, t_end, wheel="auto", **ACTIVE)
         torch.cuda.synchronize()
         t_probe = time.perf_counter() - t0
@@ -752,8 +828,9 @@ def phase_active(dev, t_end, dense):
         spike_count_differs=differ, n_steps=int(res.n_steps),
         n_events=int(res.n_events), batch_cap=run.batch_cap,
         spike_cap=run.spike_cap, wheel=list(spec), sched=m,
-        mask=_Recorder.busiest(seen.masks, lambda b: b),
-        keys=_Recorder.busiest(seen.keys, lambda b: b < n_keys))
+        mask=_Recorder.busiest(seen.seen["compact_gather"], lambda b: b),
+        keys=_Recorder.busiest(seen.seen["segment_rank"],
+                               lambda b: b < n_keys))
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -808,7 +885,8 @@ def phase_sched_kernels(dev, act):
     rows["compact_ids"] = kernel_row(
         0.0, lambda: ew_ops.compact_ids(m, cap),
         lambda: ew_ref.compact_ids_ref(m, cap), N + 4 * cap + 4, N,
-        INT32_OPS, library=lambda: torch.nonzero(m), library_syncs=True)
+        INT32_OPS, library=lambda: torch.nonzero(m),
+        library_device=profiled_device_ms)
     say("sched-kernels", f"compact_ids N={N} caps {caps}, densities "
         f"{sorted(masks)}, and N x mask offset {odd}: bitwise; "
         f"{fmt_row(rows['compact_ids'])} (library: torch.nonzero)")
@@ -999,7 +1077,7 @@ def phase_fused_solve(dev):
             lambda: h_ref.hines_solve_ref(p.parent, p.g_axial, dT, bT),
             24 * ne + 12 * C, (8 * (C - 1) + 1) * N,
             library=lambda: torch.linalg.solve(dense, rhs),
-            library_syncs=True)
+            library_device=profiled_device_ms)
         say("fused-solve", f"C={C} N={N}: hines_solve {fmt_row(got)} "
             f"(library: torch.linalg.solve on the dense [N, C, C] systems); "
             f"bitwise equal to the plain version and to K2(K1(d), b); "
@@ -1338,7 +1416,7 @@ def phase_spmd(dev, t_end, main):
         raise AssertionError(f"spmd full stack never launched {missing}")
     out["bitwise"] = bitwise
     return out, runs["sparse"]["mask"], sum(runs["sparse"]["launches"]
-                                            ["compact_rows"])
+                                            ["compact_rows"]), a
 
 
 def _ladder():
@@ -1411,10 +1489,12 @@ def phase_spmd_small(dev, n=256, t_end=5.0):
     from repro_torch.distributed.group import launch
     t0 = time.perf_counter()
     runs = {"allgather": dict(transport="allgather", parcel_cap=64),
-            "sparse": dict(transport="sparse", parcel_cap=64)}
+            "sparse": dict(transport="sparse", parcel_cap=64),
+            "global": dict(optimized=False, parcel_cap=64)}
     card = launch(RANKS, _spmd_rank, n, t_end, runs, backend="gloo",
                   device=dev)
-    cpu = launch(RANKS, _spmd_rank, n, t_end, {"sparse": runs["sparse"]},
+    cpu = launch(RANKS, _spmd_rank, n, t_end,
+                 {k: runs[k] for k in ("sparse", "global")},
                  backend="gloo", device="cpu")
     model, net = _baseline_model_net(dev, n)
     single = run_fap_vardt(model, net, regime_currents(n), t_end,
@@ -1429,16 +1509,29 @@ def phase_spmd_small(dev, n=256, t_end=5.0):
     same_1 = _same_spmd(sp, single)
     same_cpu = _same_spmd(sp, sc) and \
         card["sparse"]["rounds"] == cpu["sparse"]["rounds"]
+    gl, glc = card["global"]["res"], cpu["global"]["res"]
+    same_gl = _same_spmd(gl, sp) and \
+        card["global"]["rounds"] == card["sparse"]["rounds"]
+    same_gl_cpu = _same_spmd(gl, glc) and \
+        card["global"]["rounds"] == cpu["global"]["rounds"]
     say("spmd-small", f"N={n} C=13 t_end={t_end} ms, {RANKS} ranks: spikes "
         f"{int(sp.rec.count.sum())}, n_steps card {int(sp.n_steps)} cpu "
         f"{int(sc.n_steps)} single-host {int(single.n_steps)}; allgather "
         f"== sparse: {same_ag}; sparse == single-host run_fap_vardt("
         f"step_budget=8): {same_1}; card ranks == CPU ranks bitwise: "
-        f"{same_cpu} ({time.perf_counter() - t0:.1f} s)")
-    for name, r in (("allgather", ag), ("sparse", sp), ("cpu sparse", sc)):
+        f"{same_cpu}; the global round (optimized=False) == sparse: "
+        f"{same_gl}, its card ranks == its CPU ranks bitwise: {same_gl_cpu}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    for name, r in (("allgather", ag), ("sparse", sp), ("cpu sparse", sc),
+                    ("global", gl), ("cpu global", glc)):
         _gate_run(f"spmd-small {name}", r)
-    if not (same_ag and same_1 and same_cpu):
+    if not (same_ag and same_1 and same_cpu and same_gl and same_gl_cpu):
         raise AssertionError("spmd-small: runs differ")
+    missing = [k for k in GLOBAL_PATH
+               if min(card["global"]["launches"][k]) <= 0]
+    if missing:
+        raise AssertionError(f"spmd-small global: some rank never launched "
+                             f"{missing}")
 
 
 
@@ -2188,16 +2281,20 @@ def _service(run, t_end, lanes, reqs, **kw):
     return svc.run()
 
 
-def _sim_runner(dev, n, t_end):
-    """The service's runner: phase 3's cell, network and horizon, the
-    currents per tenant."""
+def _sim_runner(dev, n, t_end, **knobs):
+    """The service's runner: phase 3's cell, network and horizon (the fused
+    one unless ``knobs`` say otherwise), the currents per tenant; a wheel
+    is sized from the network."""
     from repro_torch.core.exec_fap import make_fap_vardt_runner
+    from repro_torch.sched import WheelSpec
     model, net = _baseline_model_net(dev, n)
-    return make_fap_vardt_runner(model, net, 0.0, t_end,
-                                 horizon_impl="fused", device=dev)
+    kw = dict(dict(horizon_impl="fused"), **knobs)
+    if kw.get("queue") == "wheel":
+        kw["wheel"] = WheelSpec.auto(net)
+    return make_fap_vardt_runner(model, net, 0.0, t_end, device=dev, **kw)
 
 
-def phase_service(dev, main, smi, lanes=4, tenants=8, t_end=6.0):
+def phase_service(dev, main, smi, lanes=4, tenants=8, t_end=3.0):
     """``SimService`` at full width: 4 lanes of N = 16384, 8 tenants, a
     poisoned tenant; counts zeroed just before the batched service."""
     from repro_torch.checkpoint import FaultPlan
@@ -2339,6 +2436,7 @@ def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=5.0, lanes=3, tenants=5,
     and on two ranks."""
     from repro_torch.checkpoint import FaultPlan
     from repro_torch.distributed.group import launch
+    from repro_torch.kernels import build
     from repro_torch.serve import TenantRequest
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -2378,6 +2476,42 @@ def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=5.0, lanes=3, tenants=5,
     if not same or a.completed != tenants or a.quarantines < 1 \
             or min(spikes) <= 0:
         raise AssertionError("robust card-vs-CPU: the services differ")
+    # the service over compact runners: the incremental (scatter) horizon
+    # and the fused one, each tenant its own compact batch and fan-out;
+    # one wave of tenants (the poisoned one among them)
+    compact = {}
+    reqs = reqs[:lanes]
+    for hi in ("scatter", "fused"):
+        build.reset_launches()
+        knobs = dict(COMPACT_SMALL, batch_cap=n // 2, horizon_impl=hi)
+        ca, cb = [_service(_sim_runner(dv, n, t_service, **knobs),
+                           t_service, lanes, reqs,
+                           fault=FaultPlan(poison_tenant=2,
+                                           poison_at_round=3))
+                  for dv in (dev, torch.device("cpu"))]
+        launched = build.launches()
+        c_same = ca.rounds == cb.rounds and all(
+            (ca.results[r].status, ca.results[r].retries,
+             ca.results[r].rounds)
+            == (cb.results[r].status, cb.results[r].retries,
+                cb.results[r].rounds)
+            and np.array_equal(ca.results[r].times, cb.results[r].times)
+            for r in range(lanes))
+        c_spikes = [int(ca.results[r].count.sum()) for r in range(lanes)]
+        say("robust-card-vs-cpu", f"SimService {lanes} lanes x N={n} over "
+            f"the compact runner {knobs}: {ca.completed} completed, "
+            f"{ca.quarantines} quarantines, {ca.rounds} rounds, spikes "
+            f"{c_spikes}; card == CPU bitwise (statuses, retries, rounds, "
+            f"spike trains): {c_same}; rows-kernel launches K6 "
+            f"{launched['compact_ids_rows']}, K7 "
+            f"{launched['compact_gather_rows']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not c_same or ca.completed != lanes or ca.quarantines < 1 \
+                or min(c_spikes) <= 0 or launched["compact_ids_rows"] <= 0 \
+                or launched["compact_gather_rows"] <= 0:
+            raise AssertionError(f"robust card-vs-CPU: the compact services "
+                                 f"({hi} horizon) differ")
+        compact[hi] = ca.rounds
     with tempfile.TemporaryDirectory() as d:
         four = launch(RANKS, _spmd_robust_rank, n_spmd, t_end, d, RANKS,
                       backend="gloo", device=dev)
@@ -2400,7 +2534,7 @@ def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=5.0, lanes=3, tenants=5,
             or res["health"]["elastic_reseeded"]:
         raise AssertionError("robust SPMD: resumed runs differ")
     return dict(n=n, t_end=t_end, rounds=rp, service_rounds=a.rounds,
-                spmd_rounds=base["rounds"],
+                compact_service_rounds=compact, spmd_rounds=base["rounds"],
                 wall_s=time.perf_counter() - t0)
 
 
@@ -2812,8 +2946,9 @@ def phase_flash_backward(dev):
     device ms, bound (the five products S, dP, dv, dq, dk: 10 D FLOPs a
     pair, at bf16's tensor-core or float32's CUDA-core rate), the plain
     version's ms and SDPA's backward (``scaled_dot_product_attention``
-    under autograd, a yardstick), and the share of the bound the device
-    ms reach.  Returns the rows by (case, dtype)."""
+    under autograd, a yardstick; its device ms by ``queued_device_ms``),
+    and the share of the bound the device ms reach.  Returns the rows by
+    (case, dtype)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ref as a_ref
     from repro_torch.kernels.attention.flash_backward import \
@@ -2871,7 +3006,7 @@ def phase_flash_backward(dev):
                 BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
                 library=lambda: torch.autograd.grad(
                     lo, (lq, lk, lv), ldo, retain_graph=True),
-                library_syncs=True)
+                library_device="queued")
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
             say("backward", f"{name} ({str(dtype)[6:]}): {fmt_row(row)} "
                 "(library: "
@@ -3105,6 +3240,257 @@ def phase_train_card_vs_cpu(dev, smi, steps=3, lr=1e-3):
     return out
 
 
+# --------------------------------------------------------------- phase 30 --
+def phase_global_round(dev, t_end, spmd, sparse_res, smi):
+    """The paper-faithful global round (``build_fap_round(optimized=False)``)
+    at full width, four ranks on the card, ``queue="dense"``, counts zeroed
+    just before; held to phase 12's sparse run."""
+    from repro_torch.distributed.group import launch
+    t0 = time.perf_counter()
+    runs = launch(RANKS, _spmd_rank, N_MAIN, t_end,
+                  {"global": dict(optimized=False, parcel_cap=PARCEL_CAP)},
+                  backend="gloo", device=dev)
+    r = runs["global"]
+    res, rounds = r["res"], r["rounds"]
+    spikes = int(res.rec.count.sum())
+    per = {k: {"bytes_per_round": v["bytes"] / rounds,
+               "ms_per_round": v["seconds"] / rounds * 1e3,
+               "calls": v["calls"]}
+           for k, v in res.comm["channels"].items()}
+    sp = spmd["sparse"]
+    ms_round = r["wall_s"] / max(rounds, 1) * 1e3
+    sp_round = sp["wall_s"] / max(sp["rounds"], 1) * 1e3
+    say("global", f"{RANKS} ranks on {dev} over gloo, N={N_MAIN} C=13 "
+        f"k_in={K_IN} t_end={t_end} ms, build_fap_round(optimized=False), "
+        f"queue=dense: rounds {rounds}, n_steps {int(res.n_steps)}, "
+        f"n_events {int(res.n_events)}, n_resets {int(res.n_resets)}, "
+        f"spikes {spikes}, dropped {int(res.dropped)}, failed "
+        f"{bool(res.failed)}; wall {r['wall_s']:.2f} s, {ms_round:.1f} ms "
+        f"per round beside phase 12's sparse {sp_round:.1f} on {smi} "
+        f"(spawn, build and run {time.perf_counter() - t0:.1f} s)")
+    def by_tag(channels, key, nd=None):
+        return json.dumps({k: v[key] if nd is None else round(v[key], nd)
+                           for k, v in channels.items()})
+
+    say("global", f"bytes per round on rank 0: "
+        f"{by_tag(per, 'bytes_per_round')}; phase 12's sparse "
+        f"{by_tag(sp['channels'], 'bytes_per_round')}")
+    say("global", f"host wall inside the collectives, ms per round on rank "
+        f"0: {by_tag(per, 'ms_per_round', 3)}; phase 12's sparse "
+        f"{by_tag(sp['channels'], 'ms_per_round', 3)}")
+    say("global", f"launches per rank {json.dumps(r['launches'])}")
+    _gate_run("global", res)
+    if rounds >= 400:
+        raise AssertionError("global: did not reach t_end")
+    ref = sparse_res
+    fin = torch.isfinite(ref.rec.times)
+    dts = float((res.rec.times[fin] - ref.rec.times[fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    same = dict(counts=torch.equal(res.rec.count, ref.rec.count),
+                finite=torch.equal(torch.isfinite(res.rec.times), fin),
+                n_events=int(res.n_events) == int(ref.n_events),
+                n_steps=int(res.n_steps) == int(ref.n_steps),
+                n_resets=int(res.n_resets) == int(ref.n_resets),
+                rounds=rounds == sp["rounds"])
+    bitwise = _same_spmd(res, ref)
+    say("global", f"global vs phase 12's sparse: {json.dumps(same)}; spike "
+        f"times within {dts:.2e} ms; bitwise equal (times, final states): "
+        f"{bitwise}")
+    if not all(same.values()) or dts > 1e-9:
+        raise AssertionError("global: differs from phase 12's sparse run")
+    missing = [k for k in GLOBAL_PATH if min(r["launches"][k]) <= 0]
+    if missing:
+        raise AssertionError(f"global: some rank never launched {missing}")
+    return dict(rounds=rounds, wall_s=r["wall_s"], ms_per_round=ms_round,
+                sparse_ms_per_round=sp_round, spikes=spikes,
+                n_steps=int(res.n_steps), channels=per, bitwise=bitwise,
+                launches=r["launches"])
+
+
+# --------------------------------------------------------------- phase 31 --
+def _compact_tenants(m, s_cap):
+    """The rows of a [T, N] spike mask whose tenant takes the compact
+    fan-out (1..``s_cap`` spikes), as ``exec_common.make_spike_insert``'s
+    rows form decides from K7's counts."""
+    c = m.sum(dim=1)
+    return (c > 0) & (c <= s_cap)
+
+
+def _rows_kernel_rows(dev, sel, spk, used, cap, s_cap):
+    """The rows forms against their plain versions, bitwise, on the
+    service path's busiest masks, on its mask with the most spikes in
+    compact-fan-out tenants (``used``) and on masks of densities 0-100 %;
+    their ``kernels`` rows at the path's masks: K6's at the busiest
+    selection, beside ``torch.nonzero``; K7's at ``used``, where its
+    output feeds the compact batch insert, with a row at the busiest
+    mask (every tenant past the cap) printed beside it."""
+    from repro_torch.core.exec_common import out_edge_table
+    from repro_torch.core.network import make_network
+    from repro_torch.kernels.event_wheel import ops as ew_ops
+    from repro_torch.kernels.event_wheel import ref as ew_ref
+    T, N = sel.shape
+    net = make_network(N, k_in=K_IN, seed=NET_SEED)
+    table = torch.as_tensor(out_edge_table(net), device=dev).contiguous()
+    E, MO = int(net.pre.shape[0]), int(table.shape[1])
+    gen = np.random.default_rng(31)
+    masks = [("path", sel, spk), ("path-compact", sel, used)] + [
+        (f"{d:.0%}", m, m) for d in (0.0, 0.01, 0.5, 1.0)
+        for m in [torch.from_numpy(gen.random((T, N)) < d).to(dev)]]
+    for name, mi, mg in masks:
+        for g, w in zip(ew_ops.compact_ids_rows(mi, cap),
+                        ew_ref.compact_ids_rows_ref(mi, cap)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"compact_ids_rows mask={name}: kernel "
+                                     f"differs from its plain version")
+        for g, w in zip(ew_ops.compact_gather_rows(mg, table, s_cap, fill=E),
+                        ew_ref.compact_gather_rows_ref(mg, table, s_cap, E)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"compact_gather_rows mask={name}: "
+                                     f"kernel differs from its plain version")
+    rows = {}
+    rows["compact_ids_rows"] = kernel_row(
+        0.0, lambda: ew_ops.compact_ids_rows(sel, cap),
+        lambda: ew_ref.compact_ids_rows_ref(sel, cap),
+        T * N + 4 * T * cap + 4 * T, T * N, INT32_OPS,
+        library=lambda: torch.nonzero(sel),
+        library_device=profiled_device_ms)
+
+    def gather_row(m):
+        kept = int(torch.clamp(m.sum(dim=1), max=s_cap).sum())
+        return kept, kernel_row(
+            0.0, lambda: ew_ops.compact_gather_rows(m, table, s_cap, fill=E),
+            lambda: ew_ref.compact_gather_rows_ref(m, table, s_cap, E),
+            T * N + 4 * kept * MO + 4 * T * s_cap * (MO + 1) + 4 * T,
+            T * N + kept * MO, INT32_OPS)
+
+    kept, rows["compact_gather_rows"] = gather_row(used)
+    busy_kept, busy = gather_row(spk)
+    say("compact-service", f"compact_ids_rows T={T} N={N} cap={cap} (path "
+        f"mask: {int(sel.sum())} set): bitwise, also at densities 0-100 %; "
+        f"{fmt_row(rows['compact_ids_rows'])} (library: torch.nonzero)")
+    per = used.sum(dim=1).tolist()
+    say("compact-service", f"compact_gather_rows T={T} N={N} MO={MO} "
+        f"spike_cap={s_cap} fill=E={E}, bitwise on the path's masks and at "
+        f"densities 0-100 %; at the path mask with the most compact-fan-out "
+        f"spikes (spikes per tenant {per}, {kept} kept): "
+        f"{fmt_row(rows['compact_gather_rows'])}; at the busiest path mask "
+        f"({int(spk.sum())} spikes, {busy_kept} kept, every tenant past the "
+        f"cap): {fmt_row(busy)}")
+    return rows, busy
+
+
+def phase_compact_service(dev, dense, spike_cap, smi, lanes=4, tenants=8,
+                          t_end=None):
+    """``SimService`` at full width over the active-set runner: phase 23's
+    lanes, tenants, currents, QoS classes and poisoned tenant, with
+    ``batch="compact", batch_cap=N/4, fanout="compact"`` at phase 4's spike
+    cap, ``queue="wheel"`` and the fused horizon; counts zeroed just
+    before the batched service."""
+    from repro_torch.checkpoint import FaultPlan
+    from repro_torch.kernels import build
+    from repro_torch.serve import TenantRequest
+    t_end = dense["t_end"] if t_end is None else t_end
+    cap = N_MAIN // 4
+    run = _sim_runner(dev, N_MAIN, t_end, batch="compact", batch_cap=cap,
+                      fanout="compact", spike_cap=spike_cap, queue="wheel")
+    cur, qos = _service_currents(tenants)
+    reqs = [TenantRequest(rid=r, iinj=cur[r], qos=qos[r])
+            for r in range(tenants)]
+    caps = {0: N_MAIN // 4}
+    poisoned, clean = 1, 0
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Recorder("compact_ids_rows", "compact_gather_rows") as seen:
+        res = _service(run, t_end, lanes, reqs, qos_caps=caps,
+                       fault=FaultPlan(poison_tenant=poisoned,
+                                       poison_at_round=4))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t1 = time.perf_counter()
+    solo = {rid: _service(run, t_end, 1, [reqs[rid]], qos_caps=caps)
+            for rid in (poisoned, clean)}
+    solo_wall = time.perf_counter() - t1
+    spikes = {rid: int(r.count.sum()) for rid, r in res.results.items()
+              if r.status == "completed"}
+    same = {rid: np.array_equal(res.results[rid].times,
+                                solo[rid].results[rid].times)
+            and np.array_equal(res.results[rid].count,
+                               solo[rid].results[rid].count)
+            for rid in solo}
+    per_round = wall / max(res.rounds, 1) * 1e3
+    w = res.health["admission_wait_rounds"]
+    say("compact-service", f"SimService {lanes} lanes x N={N_MAIN} C=13, "
+        f"{tenants} tenants t_end={t_end} ms (phase 23's currents, QoS and "
+        f"poisoned rid {poisoned}), batch=compact batch_cap={cap}, "
+        f"fanout=compact spike_cap={spike_cap}, queue=wheel, fused "
+        f"horizon: {res.completed} completed, {res.evicted} evicted, "
+        f"{res.rejected} rejected, {res.quarantines} quarantines, "
+        f"{res.retried} retries (rid {poisoned}: "
+        f"{res.results[poisoned].retries}); spikes {json.dumps(spikes)}")
+    say("compact-service", f"{res.rounds} service rounds in {wall:.2f} s, "
+        f"{per_round:.1f} ms per service round, "
+        f"{tenants * t_end / wall:.3f} tenant-ms per wall second; beside "
+        f"phase 23's dense service: {dense['rounds']} rounds, "
+        f"{dense['ms_per_round']:.1f} ms per round, "
+        f"{dense['tenant_ms_per_s']:.3f} tenant-ms per wall second; "
+        f"admission wait mean {w['mean']:.1f} max {w['max']} rounds; peak "
+        f"memory {peak:.2f} GiB on {smi}; launches {json.dumps(launches)}")
+    say("compact-service", f"solo 1-lane services of rid {poisoned} "
+        f"(poisoned in the batch) and rid {clean}: bitwise equal to the "
+        f"batch: {json.dumps({str(k): v for k, v in same.items()})} "
+        f"({solo_wall:.2f} s)")
+    if res.completed != tenants or res.quarantines < 1 \
+            or res.results[poisoned].retries < 1:
+        raise AssertionError(f"compact service: {res.completed} of "
+                             f"{tenants} completed, {res.quarantines} "
+                             f"quarantines")
+    if not all(same.values()):
+        raise AssertionError("compact service: a tenant differs from its "
+                             "solo run")
+    if min(spikes.values()) <= 0:
+        raise AssertionError(f"compact service: a tenant without spikes "
+                             f"{spikes}")
+    missing = [k for k in COMPACT_SERVICE_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"compact service path never launched "
+                             f"{missing}")
+    # each spiking round's fan-out branch per tenant, from the masks K7's
+    # rows form was given: compact batch (1..spike_cap spikes) or the
+    # dense insert of the tenant's own rows (more)
+    s_cap = min(spike_cap, N_MAIN)
+    spk_masks = seen.seen["compact_gather_rows"]
+    small = [_compact_tenants(m, s_cap) for m in spk_masks]
+    n_compact = sum(int(b.sum()) for b in small)
+    n_dense = sum(int((m.sum(dim=1) > s_cap).sum()) for m in spk_masks)
+    r_compact = sum(int(b.any()) for b in small)
+    say("compact-service", f"fan-out per tenant over the {len(spk_masks)} "
+        f"spiking rounds: {n_compact} compact batches (in {r_compact} "
+        f"rounds; {launches['segment_rank']} K8 launches, the wheel's batch "
+        f"insert), {n_dense} dense inserts")
+    if n_compact <= 0:
+        raise AssertionError("compact service: no tenant took the compact "
+                             "fan-out")
+    sel = _Recorder.busiest(seen.seen["compact_ids_rows"], lambda m: m)
+    spk = _Recorder.busiest(spk_masks, lambda m: m)
+    used = _Recorder.busiest(
+        spk_masks, lambda m: m & _compact_tenants(m, s_cap)[:, None])
+    rows, busy = _rows_kernel_rows(dev, sel, spk, used, cap, s_cap)
+    out = dict(lanes=lanes, tenants=tenants, t_end=t_end, batch_cap=cap,
+               spike_cap=spike_cap, rounds=res.rounds, wall_s=wall,
+               ms_per_round=per_round, tenant_ms_per_s=tenants * t_end / wall,
+               peak_gib=peak, quarantines=res.quarantines,
+               retried=res.retried, spikes=spikes, solo_identical=same,
+               solo_wall_s=solo_wall, launches=launches,
+               fanout_compact_tenants=n_compact,
+               fanout_compact_rounds=r_compact, fanout_dense_tenants=n_dense,
+               compact_gather_rows_busiest=busy)
+    return out, rows, launches
+
+
 def phase_profile(dev, n_rounds, t_end, skip=54, path="dense", **knobs):
     """Where a full-width round's time goes: ``torch.profiler`` over
     ``n_rounds`` rounds of a path after ``skip`` unprofiled ones (the
@@ -3230,7 +3616,7 @@ def phase_profile_serve(dev, n_steps, t_pos=128, arch=LM_ARCH):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--t-end", type=float, default=10.0,
+    ap.add_argument("--t-end", type=float, default=6.0,
                     help="simulated ms of the full-width phases 3, 4, 9, "
                     "18 and 22")
     ap.add_argument("--out", default=None, help="also write results as JSON")
@@ -3244,46 +3630,72 @@ def main(argv=None):
     import repro_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda")
     t_all = time.perf_counter()
-    smi = phase_setup()
-    rows = phase_kernels(dev)
-    launches, main_stats = phase_main(dev, args.t_end)
-    act_launches, act = phase_active(dev, args.t_end, main_stats)
-    rows.update(phase_sched_kernels(dev, act))
-    phase_card_vs_cpu(dev)
-    phase_active_card_vs_cpu(dev)
-    rows.update(phase_fused_solve(dev))
-    base_launches, base = phase_baseline(dev, args.t_end, main_stats)
-    others = phase_other_baselines(dev)
-    phase_baselines_card_vs_cpu(dev)
-    spmd, path_mask, launches["compact_rows"] = phase_spmd(dev, SPMD_T_END,
-                                                           main_stats)
-    rows.update(phase_parcel_kernel(dev, path_mask))
-    phase_spmd_small(dev)
-    attn_rows = phase_attention(dev)
+    walls = {}
+
+    def timed(label, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[label] = time.perf_counter() - t0
+        say("wall", f"phase {label}: {walls[label]:.1f} s")
+        return out
+
+    smi = timed("1 setup", phase_setup)
+    rows = timed("2 kernels", phase_kernels, dev)
+    launches, main_stats = timed("3 main", phase_main, dev, args.t_end)
+    act_launches, act = timed("4 active", phase_active, dev, args.t_end,
+                              main_stats)
+    rows.update(timed("5 sched-kernels", phase_sched_kernels, dev, act))
+    timed("6 card-vs-cpu", phase_card_vs_cpu, dev)
+    timed("7 active-card-vs-cpu", phase_active_card_vs_cpu, dev)
+    rows.update(timed("8 fused-solve", phase_fused_solve, dev))
+    base_launches, base = timed("9 baseline", phase_baseline, dev,
+                                args.t_end, main_stats)
+    others = timed("10 other-baselines", phase_other_baselines, dev)
+    timed("11 baselines-card-vs-cpu", phase_baselines_card_vs_cpu, dev)
+    spmd, path_mask, launches["compact_rows"], sparse_res = timed(
+        "12 spmd", phase_spmd, dev, SPMD_T_END, main_stats)
+    rows.update(timed("13 parcel-kernel", phase_parcel_kernel, dev,
+                      path_mask))
+    timed("14 spmd-small", phase_spmd_small, dev)
+    glob = timed("30 global", phase_global_round, dev, SPMD_T_END, spmd,
+                 sparse_res, smi)
+    attn_rows = timed("15 attention", phase_attention, dev)
     rows.update(attn_rows)
-    serve_launches, lm_stats = phase_serve(dev, smi)
+    serve_launches, lm_stats = timed("16 serve", phase_serve, dev, smi)
     launches.update(serve_launches)
-    lm_vs_cpu = phase_lm_card_vs_cpu(dev)
+    lm_vs_cpu = timed("17 lm-card-vs-cpu", phase_lm_card_vs_cpu, dev)
     f32 = lm_vs_cpu["float32"]
     launches["flash_attention_f32_decode"] = f32["launches"]
     launches["flash_attention_f32_prefill"] = f32["prefill_launches"]
     rows["flash_attention_f32_decode"] = f32.pop("row")
     rows["flash_attention_f32_prefill"] = f32.pop("prefill_row")
-    plastic = phase_plastic_schur(dev, args.t_end, main_stats, smi)
-    spec = phase_speculative(dev, SPEC_T_END, main_stats, act["spike_cap"],
-                             smi)
-    new_vs_cpu = phase_new_paths_card_vs_cpu(dev, smi)
-    ckpt = phase_checkpoint(dev, args.t_end, main_stats, smi)
-    service = phase_service(dev, main_stats, smi)
-    robust_vs_cpu = phase_robust_card_vs_cpu(dev, smi)
-    families = phase_families(dev, smi)
-    families_vs_cpu = phase_families_card_vs_cpu(dev)
-    bwd_rows = phase_flash_backward(dev)
+    plastic = timed("18 plastic-schur", phase_plastic_schur, dev, args.t_end,
+                    main_stats, smi)
+    spec = timed("19 speculative", phase_speculative, dev, SPEC_T_END,
+                 main_stats, act["spike_cap"], smi)
+    new_vs_cpu = timed("20 new-paths-card-vs-cpu",
+                       phase_new_paths_card_vs_cpu, dev, smi)
+    ckpt = timed("22 checkpoint", phase_checkpoint, dev, args.t_end,
+                 main_stats, smi)
+    service = timed("23 service", phase_service, dev, main_stats, smi)
+    compact_service, compact_rows, cs_launches = timed(
+        "31 compact-service", phase_compact_service, dev, service,
+        act["spike_cap"], smi)
+    rows.update(compact_rows)
+    launches.update({k: cs_launches[k] for k in ("compact_ids_rows",
+                                                 "compact_gather_rows")})
+    robust_vs_cpu = timed("24 robust-card-vs-cpu", phase_robust_card_vs_cpu,
+                          dev, smi)
+    families = timed("25 families", phase_families, dev, smi)
+    families_vs_cpu = timed("26 families-card-vs-cpu",
+                            phase_families_card_vs_cpu, dev)
+    bwd_rows = timed("27 flash-backward", phase_flash_backward, dev)
     rows["flash_attention_bwd"] = bwd_rows["smollm-135m training",
                                            "bfloat16"]
-    train_launches, train_stats = phase_train(dev, smi)
+    train_launches, train_stats = timed("28 train", phase_train, dev, smi)
     launches.update(train_launches)
-    train_vs_cpu = phase_train_card_vs_cpu(dev, smi)
+    train_vs_cpu = timed("29 train-card-vs-cpu", phase_train_card_vs_cpu,
+                         dev, smi)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -3304,7 +3716,8 @@ def main(argv=None):
     main_stats.pop("ref")
     for k in ("mask", "keys"):
         act.pop(k)
-    say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+    say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s;"
+        f" walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -3316,6 +3729,8 @@ def main(argv=None):
              "lm_card_vs_cpu": lm_vs_cpu, "plastic_schur": plastic,
              "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu,
              "checkpoint": ckpt, "service": service,
+             "global_round": glob, "compact_service": compact_service,
+             "walls": walls,
              "robust_card_vs_cpu": robust_vs_cpu, "families": families,
              "families_card_vs_cpu": families_vs_cpu,
              "flash_backward": {f"{n} {d}": r for (n, d), r in

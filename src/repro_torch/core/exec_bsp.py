@@ -37,12 +37,6 @@ EV_CAP = 64
 SPK_CAP = 256
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes in a later slice of the port (ROADMAP queue 1, "
-        f"item {item})")
-
-
 class RunResult(NamedTuple):
     rec: object                # events.SpikeRecord
     n_steps: torch.Tensor      # total steps (all neurons)

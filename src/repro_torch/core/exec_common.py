@@ -127,13 +127,14 @@ def solver_stats(sts) -> dict:
 
 def select_active(runnable, t_clock, cap: int, n_iters: int = 48):
     """Earliest-``cap`` restriction of the runnable frontier, sort-free
-    (``select_threshold`` bisection on counts).  With ``cap`` or fewer
-    runnable the mask comes back unchanged; the globally earliest runnable
-    neuron is always kept."""
+    (``select_threshold`` bisection on counts), along the last axis (each
+    row of a [T, N] mask on its own).  With ``cap`` or fewer runnable the
+    mask comes back unchanged; the globally earliest runnable neuron is
+    always kept."""
     from repro_torch.kernels.event_wheel import ops as ew_ops
     score = torch.where(runnable, t_clock, torch.inf)
     tau = ew_ops.select_threshold(score, cap, n_iters=n_iters)
-    return runnable & (score <= tau)
+    return runnable & (score <= tau[..., None])
 
 
 def out_tables(net):
@@ -171,7 +172,7 @@ def out_edge_table(net) -> np.ndarray:
 
 def make_spike_insert(net, dnet: DeviceNet, qops, qinsert,
                       fanout: str = "dense", spike_cap: int = 256,
-                      edge_table=None):
+                      edge_table=None, rows: int = 1):
     """The fan-out + insert stage: ``fn(eq, spiked[N], t_spike[N]) -> eq``
     (at most one spike per neuron per call).
 
@@ -182,6 +183,16 @@ def make_spike_insert(net, dnet: DeviceNet, qops, qinsert,
                    fixed [spike_cap * MO] batch goes through the queue's
                    batch insert, and more spikes fall back to the dense
                    branch (the same events, never a drop).
+
+    ``rows`` > 1: ``net`` is ``rows`` copies of one network side by side
+    (``network.tile_network``: the tenants of ``exec_fap``'s
+    ``tenant_round``) and ``edge_table`` is one copy's out-edge table.
+    The compact fan-out then decides per copy, as JAX's ``vmap`` of the
+    one-copy ``lax.cond`` does: K7's rows form compacts every copy's
+    spikes against the one table, copies with 1..``spike_cap`` spikes
+    insert their batches (edge ids offset into the tiled edge list) and
+    copies with more take the dense insert of their own rows.  Each copy's
+    rows get exactly the events and slots of its own one-copy call.
     """
     if fanout not in ("dense", "compact"):
         raise ValueError(f"unknown fanout mode {fanout!r}")
@@ -194,8 +205,10 @@ def make_spike_insert(net, dnet: DeviceNet, qops, qinsert,
         return dense_ins
 
     from repro_torch.kernels.event_wheel import ops as ew_ops
-    n, E = int(net.n), int(dnet.pre.shape[0])
+    n, E = int(net.n) // rows, int(dnet.pre.shape[0]) // rows
     cap = min(int(spike_cap), n) if spike_cap > 0 else min(n, 256)
+    if rows > 1 and edge_table is None:
+        raise ValueError("the rows form needs one copy's edge_table")
     edge_tbl = torch.as_tensor(
         out_edge_table(net) if edge_table is None else edge_table,
         dtype=torch.int32, device=dnet.pre.device).contiguous()
@@ -217,7 +230,37 @@ def make_spike_insert(net, dnet: DeviceNet, qops, qinsert,
             return dense_ins(eq, spiked, t_sp)
         return compact_ins(eq, ids, eids, t_sp)
 
-    return ins
+    if rows == 1:
+        return ins
+    dev = dnet.pre.device
+    copy = torch.arange(rows, dtype=torch.int64, device=dev)
+
+    def ins_rows(eq, spiked, t_sp):
+        ids, eids, cnt = ew_ops.compact_gather_rows(spiked.reshape(rows, n),
+                                                    edge_tbl, cap, fill=E)
+        cnt_h = cnt.tolist()
+        small = [0 < c <= cap for c in cnt_h]
+        if any(small):
+            # the copies' batches side by side: copy t's spiking lanes and
+            # edges offset by t * n and t * E into the tiled lists
+            pick = torch.tensor(small, device=dev)
+            ok = (pick[:, None] & (ids < n))[:, :, None] & (eids < E)
+            lane = torch.clamp(ids, max=n - 1).long() + (copy * n)[:, None]
+            eidc = torch.clamp(eids, max=E - 1).long() + \
+                (copy * E)[:, None, None]
+            t_ev = t_sp[lane][:, :, None] + dnet.delay[eidc]
+            eq = qops.insert_batch(eq, dnet.post[eidc].reshape(-1),
+                                   t_ev.reshape(-1),
+                                   dnet.w_ampa[eidc].reshape(-1),
+                                   dnet.w_gaba[eidc].reshape(-1),
+                                   ok.reshape(-1))
+        big = [c > cap for c in cnt_h]
+        if any(big):
+            keep = torch.tensor(big, device=dev).repeat_interleave(n)
+            eq = dense_ins(eq, spiked & keep, t_sp)
+        return eq
+
+    return ins_rows
 
 
 def auto_batch_cap(stats: SchedStats, n: int, *, slack: float = 2.0,
@@ -252,20 +295,27 @@ def compact_frontier(runnable, t_clock, cap: int, n_iters: int = 48):
     in, replacing the last filled slot if the index-ordered compaction
     left it out (bisection-resolution ties could crowd it out and starve
     the lane the progress argument depends on).  Tensor ops only, no host
-    synchronisation."""
+    synchronisation.
+
+    Rows form: ``runnable`` and ``t_clock`` [T, N] (the tenants of
+    ``exec_fap``'s ``tenant_round``) give ids i32[T, cap] and counts
+    i32[T], every selection taken within its row (K6's rows form), as
+    JAX's ``vmap`` of the one-row function does."""
     from repro_torch.kernels.event_wheel import ops as ew_ops
-    n = t_clock.shape[0]
+    n = t_clock.shape[-1]
     sel = select_active(runnable, t_clock, cap, n_iters) if cap < n \
         else runnable
-    ids, cnt = ew_ops.compact_ids(sel, cap)
+    compact = ew_ops.compact_ids if runnable.dim() == 1 \
+        else ew_ops.compact_ids_rows
+    ids, cnt = compact(sel, cap)
     if cap < n:
         score = torch.where(runnable, t_clock, torch.inf)
-        earliest = torch.argmin(score).to(ids.dtype)
-        have = (ids == earliest).any() | ~runnable.any()
+        earliest = torch.argmin(score, dim=-1, keepdim=True).to(ids.dtype)
+        have = (ids == earliest).any(dim=-1) | ~runnable.any(dim=-1)
         last = torch.clamp(torch.minimum(cnt, torch.full_like(cnt, cap)) - 1,
                            min=0)
-        forced = ids.scatter(0, last.long().reshape(1), earliest.reshape(1))
-        ids = torch.where(have, ids, forced)
+        forced = ids.scatter(-1, last.long()[..., None], earliest)
+        ids = torch.where(have[..., None], ids, forced)
     return ids, cnt
 
 

@@ -40,7 +40,7 @@ from repro_torch.core import events as ev
 from repro_torch.core import exec_common as xc
 from repro_torch.core.cell import CellModel
 from repro_torch.core.detmath import fma
-from repro_torch.core.exec_bsp import (EV_CAP, SPK_CAP, RunResult, _later,
+from repro_torch.core.exec_bsp import (EV_CAP, SPK_CAP, RunResult,
                                        make_vardt_advance)
 from repro_torch.core.fixed_step import make_stepper
 from repro_torch.core.network import Network, tile_network
@@ -49,12 +49,14 @@ from repro_torch.kernels.event_wheel import ops as ew_ops
 
 class _Lanes(NamedTuple):
     """What a round needs of the network its lanes hold: the device edge
-    list, the spike insert, the fused horizon's by-post layout (None
-    under the scatter horizon) and the lane ids."""
+    list, the spike insert, the by-post layout of the fused or the
+    incremental horizon (None otherwise), the incremental horizon's
+    out-neighbour table (None otherwise) and the lane ids."""
     dnet: xc.DeviceNet
     spike_ins: Callable
     pre_byk: Optional[torch.Tensor]
     delay_byk: Optional[torch.Tensor]
+    out_post: Optional[torch.Tensor]
     ids: torch.Tensor
 
 
@@ -65,16 +67,19 @@ def _count(x, rows, dtype):
     return s.to(dtype)
 
 
-def _map_lanes(carry, fn):
+def _map_lanes(carry, fn, horizon: bool = False):
     """``carry`` with ``fn`` applied to each per-lane leaf (the BDF state,
-    the queue's slot planes, the record's times and counts); the queue's
+    the queue's slot planes, the record's times and counts, and with
+    ``horizon`` the incremental horizon that follows them); the queue's
     ``dropped``, the record's ``overflow`` and the counters stay."""
     sts, eq, rec = carry[:3]
+    rest = tuple(carry[3:])
+    if horizon:
+        rest = (fn(rest[0]),) + rest[1:]
     return (type(sts)(*[fn(x) for x in sts]),
             eq._replace(t=fn(eq.t), w_ampa=fn(eq.w_ampa),
                         w_gaba=fn(eq.w_gaba)),
-            rec._replace(times=fn(rec.times), count=fn(rec.count))) + \
-        tuple(carry[3:])
+            rec._replace(times=fn(rec.times), count=fn(rec.count))) + rest
 
 
 def fixed_steps_below(horizon, t_clock, dt: float, cap: int):
@@ -258,36 +263,37 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
     # incremental horizon: compact + scatter impl + grouped net
     incremental = (batch == "compact" and horizon_impl == "scatter"
                    and sched.grouped_k(net) is not None)
-    edge_tbl = None
+    edge_tbl = out_post = None
+    if incremental or fanout == "compact":
+        post_np, edge_np = xc.out_tables(net)     # one grouping pass serves
+        edge_tbl = edge_np                        # horizon and fan-out
     if incremental:
         pre_byk, delay_byk = ew_ops.by_post_layout(net, dev)
-        post_np, edge_np = xc.out_tables(net)     # one grouping pass serves
         out_post = torch.as_tensor(post_np, dtype=torch.int64, device=dev)
-        if fanout == "compact":                   # horizon and fan-out
-            edge_tbl = edge_np
-        pre_byk_l = pre_byk.long()
     spike_ins = xc.make_spike_insert(net, dnet, qops, qinsert, fanout, s_cap,
                                      edge_table=edge_tbl)
 
-    def _horizon_rows(t_clock, p):
+    def _horizon_rows(ln, t_clock, p):
         """Horizon of the (sentinel-padded) post set ``p`` from the current
         clocks: the min/clamp chain of the full scatter-min."""
-        pc = torch.clamp(p, max=n - 1)
-        cand = t_clock[pre_byk_l[:, pc]] + delay_byk[:, pc]   # [K, |p|]
+        pc = torch.clamp(p, max=t_clock.shape[0] - 1)
+        cand = t_clock[ln.pre_byk[:, pc].long()] + ln.delay_byk[:, pc]
         hor_p = torch.clamp(cand.amin(dim=0), max=t_end)
         return torch.minimum(hor_p, t_clock[pc] + horizon_cap)
 
-    def _insert_spikes(eq, spiked_b, tsp_b, ids):
-        spiked = xc.scatter_at(torch.zeros((n,), dtype=torch.bool,
+    def _insert_spikes(ln, eq, spiked_b, tsp_b, ids):
+        nl = ln.ids.shape[0]
+        spiked = xc.scatter_at(torch.zeros((nl,), dtype=torch.bool,
                                            device=dev), ids, spiked_b)
-        t_sp = xc.scatter_at(torch.zeros((n,), dtype=torch.float64,
+        t_sp = xc.scatter_at(torch.zeros((nl,), dtype=torch.float64,
                                          device=dev), ids, tsp_b)
-        return spike_ins(eq, spiked, t_sp)
+        return ln.spike_ins(eq, spiked, t_sp)
 
     lanes0 = _Lanes(dnet, spike_ins,
-                    pre_byk if horizon_impl == "fused" else None,
-                    delay_byk if horizon_impl == "fused" else None,
-                    neuron_ids)
+                    pre_byk if horizon_impl == "fused" or incremental
+                    else None,
+                    delay_byk if horizon_impl == "fused" or incremental
+                    else None, out_post, neuron_ids)
 
     def _round(carry, iinj_r, ln=lanes0, rows=None, active=None, k_qos=None):
         """One scheduler round over the lanes of ``ln``: the runner's own
@@ -335,10 +341,22 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
         n_runnable = _count(runnable, rows, torch.int64)
 
         if batch == "compact":
-            # compact -> step -> scatter: only the frontier pays the step
-            ids, _ = xc.compact_frontier(runnable, t_clock, cap, n_bisect)
-            lane_ok = ids < n
-            idc = torch.clamp(ids, max=n - 1).long()
+            # compact -> step -> scatter: only the frontier pays the step;
+            # with tenants each row compacts its own lanes into its own
+            # [cap] batch (K6's rows form), offset to its block of lanes
+            NL = R * n
+            if rows is None:
+                ids, _ = xc.compact_frontier(runnable, t_clock, cap,
+                                             n_bisect)
+            else:
+                ids_t, _ = xc.compact_frontier(runnable.reshape(R, n),
+                                               t_clock.reshape(R, n), cap,
+                                               n_bisect)
+                base = torch.arange(R, dtype=ids_t.dtype,
+                                    device=dev)[:, None] * n
+                ids = torch.where(ids_t < n, ids_t + base, NL).reshape(-1)
+            lane_ok = ids < NL
+            idc = torch.clamp(ids, max=NL - 1).long()
             sts_b = bdf.gather_lanes(sts, idc)
             t_b_prev = sts_b.t
             eqt_b, eqa_b, eqg_b = sched.gather_rows(eq, idc)
@@ -350,20 +368,21 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
             rec = ev.record_spikes(rec, ids, tsp_b, spiked_b)
             if bool(spiked_b.any()):
                 # a spike-free round inserts nothing: skipping is identical
-                eq = _insert_spikes(eq, spiked_b, tsp_b, ids)
+                eq = _insert_spikes(ln, eq, spiked_b, tsp_b, ids)
             if incremental:
                 # only rows fed by a moved clock can change: the batch's
                 # out-neighbours, plus the batch lanes' own cap terms
                 moved = lane_ok & (sts_b.t != t_b_prev)
-                outp = torch.where(moved[:, None], out_post[idc], n)
+                outp = torch.where(moved[:, None], ln.out_post[idc], NL)
                 p = torch.cat([ids.long(), outp.reshape(-1)])
-                # rows past N go to a dump slot; a row listed twice gets
-                # the same value from each writer
+                # rows past the lanes go to a dump slot; a row listed twice
+                # gets the same value from each writer
                 hor = torch.cat([horizon, horizon.new_zeros(1)])
-                hor[torch.clamp(p, max=n)] = _horizon_rows(sts.t, p)
-                horizon = hor[:n]
+                hor[torch.clamp(p, max=NL)] = _horizon_rows(ln, sts.t, p)
+                horizon = hor[:NL]
             stats = xc.SchedStats(stats.runnable + n_runnable,
-                                  stats.stepped + lane_ok.sum(),
+                                  stats.stepped + _count(lane_ok, rows,
+                                                         torch.int64),
                                   stats.lanes + cap,
                                   stats.rounds + 1)
         else:
@@ -392,16 +411,20 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
 
     def _tenant_lanes(T):
         """The lanes of T tenants' networks side by side (built once per
-        T): ``network.tile_network``'s edge tables, dense insert and
-        by-post layout."""
+        T): ``network.tile_network``'s edge tables, spike insert (the
+        compact fan-out decided per tenant), by-post layout and
+        out-neighbour table."""
         if T not in tiled:
             tnet = tile_network(net, T)
             tdnet = xc.to_device(tnet, dev)
             ins = xc.make_spike_insert(tnet, tdnet, qops,
-                                       sched.edge_insert(qops, tnet))
+                                       sched.edge_insert(qops, tnet), fanout,
+                                       s_cap, edge_table=edge_tbl, rows=T)
             pb, db = ew_ops.by_post_layout(tnet, dev) \
-                if horizon_impl == "fused" else (None, None)
-            tiled[T] = _Lanes(tdnet, ins, pb, db,
+                if horizon_impl == "fused" or incremental else (None, None)
+            op = torch.as_tensor(xc.out_post_table(tnet), dtype=torch.int64,
+                                 device=dev) if incremental else None
+            tiled[T] = _Lanes(tdnet, ins, pb, db, op,
                               torch.arange(T * n, dtype=torch.int64,
                                            device=dev))
         return tiled[T]
@@ -421,19 +444,22 @@ def make_fap_vardt_runner(model: CellModel, net: Network, iinj, t_end: float,
         over ``network.tile_network``'s tables: each lane's step is the
         one it takes alone, and every selection, reduction and counter is
         taken per tenant, so a tenant's trajectory does not depend on its
-        neighbours.  Dense batch and fan-out only: the compact batch and
-        fan-out would share one cap between tenants."""
-        if batch == "compact" or fanout == "compact":
-            raise _later("tenant_round with batch='compact' or "
-                         "fanout='compact' (one cap per tenant)", 15)
+        neighbours.  Under the active-set knobs each tenant has its own
+        [batch_cap] batch (K6's rows form), its own compact fan-out or
+        dense fallback (K7's rows form: a tenant with more than
+        ``spike_cap`` spikes takes the dense insert of its own rows) and,
+        under the scatter horizon, its own incremental horizon, a [T, N]
+        leaf of the carry."""
         T = int(carry[0].t.shape[0])
         i_lanes = torch.as_tensor(iinj, dtype=torch.float64, device=dev) \
             .reshape(T, -1).expand(T, n).reshape(-1)
         act = torch.as_tensor(active, dtype=torch.bool, device=dev)
         kq = torch.as_tensor(k_qos, dtype=torch.int64, device=dev).expand(T)
-        flat = _map_lanes(carry, lambda x: x.reshape((-1,) + x.shape[2:]))
+        flat = _map_lanes(carry, lambda x: x.reshape((-1,) + x.shape[2:]),
+                          incremental)
         out = _round(flat, i_lanes, _tenant_lanes(T), T, act.reshape(T), kq)
-        return _map_lanes(out, lambda x: x.reshape((T, -1) + x.shape[1:]))
+        return _map_lanes(out, lambda x: x.reshape((T, -1) + x.shape[1:]),
+                          incremental)
 
     def cond(carry):
         sts, rounds = carry[0], carry[-1]

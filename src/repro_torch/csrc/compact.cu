@@ -11,6 +11,10 @@
 //     number of set lanes (it may exceed cap).
 // K7: K6, then rows[r, c] = table[ids[r], c] for filled slots and ``fill``
 //     for empty ones (table is int32 [N, MO], row-major).
+// K6 rows, K7 rows: K6 and K7 on each row t of a contiguous [T, N] mask
+//     (the tenants of the simulation service's batched round), one launch
+//     for all rows: ids[t, r], rows[t, r, c] (from the one [N, MO] table)
+//     and count[t], what JAX's vmap makes of the Pallas kernels' grids.
 // K9: K6 on every row d of a [D, M] mask, with the values: idx[d, r] = the
 //     column of the r-th kept element of row d (sentinel M), vals[d, r] =
 //     values[d, idx[d, r]] (0 in empty slots), count[d] = kept in row d.
@@ -78,6 +82,14 @@
 // values are written with 16-byte stores before the barrier, where they
 // overlap the scan's tail.  Any cap is taken.  ref.compact_gather_sched_ref
 // models the schedule.
+//
+// The rows forms are the same bodies (compact_ids_row, compact_gather_row)
+// with a second grid axis over the rows: block (b, t) runs row t's pass
+// from byte t * N of the mask (any alignment, as above) and writes row t's
+// slices.  At the simulation service's shapes (T = 4 tenants, N = 16384,
+// cap 4096; K7 at the spike cap, MO = 33) that is one launch a round in
+// place of T, and T blocks (K7: 32 T) side by side on the SMs.  They are
+// as bound as K6 and K7: a scan's latency, not bytes.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -203,9 +215,10 @@ __device__ __forceinline__ int compact_row(BitsOf bits_of, int shift,
   return carry;
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
-                   int32_t* __restrict__ ids, int32_t* __restrict__ count) {
+// K6 on one row: mask[0..N) to ids[0..cap) and *count, one block.
+__device__ __forceinline__ void compact_ids_row(
+    const uint8_t* __restrict__ mask, int N, int cap,
+    int32_t* __restrict__ ids, int32_t* __restrict__ count) {
   // mask[i] is byte i + shift of the 16-byte aligned base
   const int shift = (int)(reinterpret_cast<uintptr_t>(mask) & 15);
   const uint8_t* base = mask - shift;
@@ -217,16 +230,32 @@ compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
   if (threadIdx.x == 0) *count = total;
 }
 
+__global__ void __launch_bounds__(kThreads)
+compact_ids_kernel(const uint8_t* __restrict__ mask, int N, int cap,
+                   int32_t* __restrict__ ids, int32_t* __restrict__ count) {
+  compact_ids_row(mask, N, cap, ids, count);
+}
+
+// K6's rows form: row t = blockIdx.y of a contiguous [T, N] mask (any
+// offset of each row) to ids[t, 0..cap) and count[t].
+__global__ void __launch_bounds__(kThreads)
+compact_ids_rows_kernel(const uint8_t* __restrict__ mask, int N, int cap,
+                        int32_t* __restrict__ ids,
+                        int32_t* __restrict__ count) {
+  const long long t = blockIdx.y;
+  compact_ids_row(mask + t * N, N, cap, ids + t * cap, count + t);
+}
+
 constexpr int kGatherUnroll = 8;                // table loads before stores
 constexpr int kGatherBlocks = 32;               // K7's G
 
-// K7.  Block b of G gathers entries [n_e b / G, n_e (b + 1) / G) of the
-// n_e = kept * MO filled ones and fills its share of the rest alike.
-__global__ void __launch_bounds__(kThreads)
-compact_gather_kernel(const uint8_t* __restrict__ mask, int N,
-                      const int32_t* __restrict__ table, int MO, int cap,
-                      int fill, int32_t* ids, int32_t* __restrict__ rows,
-                      int32_t* __restrict__ count) {
+// K7 on one row.  Block b of G = gridDim.x gathers entries [n_e b / G,
+// n_e (b + 1) / G) of the n_e = kept * MO filled ones and fills its share
+// of the rest alike.
+__device__ __forceinline__ void compact_gather_row(
+    const uint8_t* __restrict__ mask, int N,
+    const int32_t* __restrict__ table, int MO, int cap, int fill,
+    int32_t* ids, int32_t* __restrict__ rows, int32_t* __restrict__ count) {
   const int shift = (int)(reinterpret_cast<uintptr_t>(mask) & 15);
   const uint8_t* base = mask - shift;
   const long long end = (long long)shift + N;
@@ -269,6 +298,27 @@ compact_gather_kernel(const uint8_t* __restrict__ mask, int N,
       if (e0 + (long long)j * kThreads < g1)
         rows[e0 + (long long)j * kThreads] = v[j];
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+compact_gather_kernel(const uint8_t* __restrict__ mask, int N,
+                      const int32_t* __restrict__ table, int MO, int cap,
+                      int fill, int32_t* ids, int32_t* __restrict__ rows,
+                      int32_t* __restrict__ count) {
+  compact_gather_row(mask, N, table, MO, cap, fill, ids, rows, count);
+}
+
+// K7's rows form: row t = blockIdx.y of a contiguous [T, N] mask, gathered
+// from the one [N, MO] table by its G blocks into ids[t], rows[t] and
+// count[t].
+__global__ void __launch_bounds__(kThreads)
+compact_gather_rows_kernel(const uint8_t* __restrict__ mask, int N,
+                           const int32_t* __restrict__ table, int MO, int cap,
+                           int fill, int32_t* ids, int32_t* __restrict__ rows,
+                           int32_t* __restrict__ count) {
+  const long long t = blockIdx.y;
+  compact_gather_row(mask + t * N, N, table, MO, cap, fill, ids + t * cap,
+                     rows + t * cap * MO, count + t);
 }
 
 // K9's three readings of the [D, M] mask: rows interleaved as the
@@ -346,6 +396,27 @@ extern "C" int compact_gather_launch(const void* mask, int N,
                                      int fill, void* ids, void* rows,
                                      void* count, void* stream) {
   compact_gather_kernel<<<kGatherBlocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, N, (const int32_t*)table, MO, cap, fill,
+      (int32_t*)ids, (int32_t*)rows, (int32_t*)count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int compact_ids_rows_launch(const void* mask, int T, int N,
+                                       int cap, void* ids, void* count,
+                                       void* stream) {
+  if (T <= 0) return 0;
+  compact_ids_rows_kernel<<<dim3(1, T), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, N, cap, (int32_t*)ids, (int32_t*)count);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int compact_gather_rows_launch(const void* mask, int T, int N,
+                                          const void* table, int MO, int cap,
+                                          int fill, void* ids, void* rows,
+                                          void* count, void* stream) {
+  if (T <= 0) return 0;
+  compact_gather_rows_kernel<<<dim3(kGatherBlocks, T), kThreads, 0,
+                               (cudaStream_t)stream>>>(
       (const uint8_t*)mask, N, (const int32_t*)table, MO, cap, fill,
       (int32_t*)ids, (int32_t*)rows, (int32_t*)count);
   return (int)cudaGetLastError();

@@ -19,7 +19,8 @@ runnable neurons to their dependency horizons, in five stages:
               K9);
   insert   -- into the local queues, dense (grouped) or compact (K7).
 
-The only communication is the transport's two channels, one sum of the
+The only communication of this shard-local round (JAX's
+``optimized=True``) is the transport's two channels, one sum of the
 round's counters and the host loop's global clock minimum.  Where JAX
 branches inside the round (``lax.cond`` on the incremental moved-set
 overflow and on the compact fan-out's spike count, ``lax.switch`` on the
@@ -33,9 +34,19 @@ whole network's state, gathered in placed order and written by rank 0
 (collectives tagged ``checkpoint``), resume on the same or another number
 of ranks, fault injection and the watchdog.
 
-Not ported here: ``optimized=False`` (the GSPMD-lowered global round,
-whose collectives XLA inserts); it raises ``NotImplementedError``
-(ROADMAP item 12).
+``optimized=False`` (the default of ``build_fap_round``, as in JAX) is the
+paper-faithful global round, the baseline the shard-local one is held
+against.  JAX writes it as global array code and GSPMD inserts the
+collectives; here each rank gathers what that code reads of the other
+shards, on channels of its own: the whole network's clocks
+(``global_clocks``), from which it computes the horizon over all E edges
+and keeps its rows; after its advance, every rank's spikes and spike times
+(``global_spikes``), from which it runs the generic queue insert
+(``QueueOps.insert``) over all E edges with the runtime ``post`` array,
+events bound for other shards masked out.  Under ``queue="dense"`` that
+insert's stable sort of the E targets stands in for XLA's distributed
+sort; under ``queue="wheel"`` K8 ranks all E events pairwise, O(E^2), so
+the global wheel round is for small networks.
 """
 from __future__ import annotations
 
@@ -50,12 +61,14 @@ from repro_torch.core import bdf
 from repro_torch.core import events as ev
 from repro_torch.core import exec_common as xc
 from repro_torch.core.cell import CellModel
-from repro_torch.core.exec_bsp import RunResult, _later, make_vardt_advance
+from repro_torch.core.exec_bsp import RunResult, make_vardt_advance
 from repro_torch.distributed import placement as plc
 from repro_torch.distributed.exchange import ExchangeSpec, get_transport
 
 OTHER_TAG = "other"      # telemetry, the loop's cond and the final gathers
 CKPT_TAG = "checkpoint"  # the gathers of a checkpoint save
+CLOCKS_TAG = "global_clocks"    # the global round's clock gather
+SPIKES_TAG = "global_spikes"    # ... and its spike gathers
 
 
 class PaperNeuroSpec(NamedTuple):
@@ -75,50 +88,71 @@ def shard_rows(x, group):
 
 def build_fap_round(model: CellModel, spec: PaperNeuroSpec, group,
                     opts: bdf.BDFOptions = bdf.BDFOptions(),
-                    optimized: bool = True, queue: str = "dense",
+                    optimized: bool = False, queue: str = "dense",
                     wheel: sched.WheelSpec = sched.WheelSpec(),
                     transport: str = "allgather",
                     exchange: ExchangeSpec = ExchangeSpec(), net=None,
                     batch: str = "dense", batch_cap: int = 0,
                     fanout: str = "dense", spike_cap: int = 0,
                     horizon: str = "full", move_cap: int = 0):
-    """The shard-local round of this rank (JAX's ``optimized=True``).
+    """This rank's round.
 
-    Returns ``fap_round(sts, eq_t, eq_a, eq_g, pre_l, delay_l, wa_l, wg_l,
-    iinj_l, *carry)`` over the rank's neurons and in-edges (``shard_rows``
-    of the global arrays; ``pre_l`` holds global ids).  It returns (sts,
-    eq_t, eq_a, eq_g, spiked, t_spike, n_deliv, n_resets, dropped,
-    parcel_bytes, parcel_peak[, horizon, prev_bnd, moved_ids]):
-    ``spiked``/``t_spike`` are the rank's own lanes; the counts are sums
-    over all ranks; ``parcel_peak`` (not in JAX's round) is this rank's
-    largest (source, destination) parcel count of the round.  The
-    transport's routing tables and the static out-edge tables are bound
-    in the closure (JAX passes them as sharded arguments).
+    ``optimized=False`` (default): the paper-faithful global round (module
+    docstring).  Returns ``fap_round(sts, eq_t, eq_a, eq_g, pre, post,
+    delay, w_a, w_g, iinj_l)``: the rank's rows of the state, queue and
+    current, and the whole network's edge arrays (JAX's global arrays);
+    it takes only the allgather transport and the dense batch and
+    fan-out, as JAX's does.
 
-    The knobs are JAX's: ``queue``, ``transport`` (with ``exchange``),
-    ``batch="compact"`` with ``batch_cap`` (<= 0: the shard width),
-    ``fanout="compact"`` with ``spike_cap`` (<= 0: min(N, 256); more
-    spikes in a round take the dense insert), ``horizon="incremental"``
-    with ``move_cap`` (needs the compact batch and a sparse transport).
+    ``optimized=True``: the shard-local round.  Returns ``fap_round(sts,
+    eq_t, eq_a, eq_g, pre_l, delay_l, wa_l, wg_l, iinj_l, *carry)`` over
+    the rank's neurons and in-edges (``shard_rows`` of the global arrays;
+    ``pre_l`` holds global ids).  The transport's routing tables and the
+    static out-edge tables are bound in the closure (JAX passes them as
+    sharded arguments).  The knobs are JAX's: ``queue``, ``transport``
+    (with ``exchange``), ``batch="compact"`` with ``batch_cap`` (<= 0: the
+    shard width), ``fanout="compact"`` with ``spike_cap`` (<= 0: min(N,
+    256); more spikes in a round take the dense insert),
+    ``horizon="incremental"`` with ``move_cap`` (needs the compact batch
+    and a sparse transport).
+
+    Both return (sts, eq_t, eq_a, eq_g, spiked, t_spike, n_deliv,
+    n_resets, dropped, parcel_bytes, parcel_peak[, horizon, prev_bnd,
+    moved_ids]): ``spiked``/``t_spike`` are the rank's own lanes; the
+    counts are sums over all ranks; ``parcel_peak`` (not in JAX's round)
+    is this rank's largest (source, destination) parcel count of the
+    round (0, like the parcel bytes, in the global round).
     """
-    if not optimized:
-        raise _later("optimized=False (the GSPMD-lowered global round)", 12)
+    # JAX's knob checks, in its order and words
+    if transport != "allgather" and not optimized:
+        raise ValueError("sparse transport realises the shard-local "
+                         "(optimized=True) round; the global path has no "
+                         "explicit channels to replace")
     if batch not in ("dense", "compact"):
         raise ValueError(f"unknown batch mode {batch!r}")
+    if batch == "compact" and not optimized:
+        raise ValueError("active-set compaction is shard-local "
+                         "(optimized=True); the global path has no "
+                         "shard-local advance stage to compact")
     if fanout not in ("dense", "compact"):
         raise ValueError(f"unknown fanout mode {fanout!r}")
-    if fanout == "compact" and net is None:
-        raise ValueError("compact fan-out derives its out-edge table from "
-                         "the concrete edge list: pass net=")
+    if fanout == "compact" and (not optimized or net is None):
+        raise ValueError("compact fan-out is shard-local (optimized=True) "
+                         "and derives its out-edge table from the concrete "
+                         "edge list: pass net=")
     if horizon not in ("full", "incremental"):
         raise ValueError(f"unknown horizon mode {horizon!r}")
     incremental = horizon == "incremental"
-    if incremental and (batch != "compact" or not transport.startswith(
-            "sparse") or net is None):
-        raise ValueError("incremental horizon maintenance needs the compact "
-                         "batch's moved set (batch='compact') and the sparse "
-                         "transport's frontier tables "
+    if incremental and (not optimized or batch != "compact"
+                        or not transport.startswith("sparse")
+                        or net is None):
+        raise ValueError("incremental horizon maintenance needs the "
+                         "shard-local round (optimized=True), the compact "
+                         "batch's moved set (batch='compact') and the "
+                         "sparse transport's frontier tables "
                          "(transport='sparse'|'sparse_ragged', net=)")
+    if not optimized:
+        return _build_global_round(model, spec, group, opts, queue, wheel)
     from repro_torch.kernels.event_wheel import ops as ew_ops
 
     dev, S, rank = group.device, group.world, group.rank
@@ -261,6 +295,48 @@ def build_fap_round(model: CellModel, spec: PaperNeuroSpec, group,
     return fap_round
 
 
+def _build_global_round(model, spec, group, opts, queue, wheel):
+    """The global round of ``build_fap_round(optimized=False)``."""
+    dev, rank = group.device, group.rank
+    n = spec.n_neurons
+    n_local = n // group.world
+    offset = rank * n_local
+    advance = make_vardt_advance(model, opts, eg_window=0.0, step_budget=8)
+    qops = sched.get_queue_ops(queue, ev_cap=spec.ev_cap, wheel=wheel)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def fap_round(sts, eq_t, eq_a, eq_g, pre, post, delay, w_a, w_g,
+                  iinj_l):
+        # --- the horizon over all E edges from the whole network's clocks
+        t_all = group.all_gather(sts.t, CLOCKS_TAG)
+        dnet = xc.DeviceNet(pre, post, delay, w_a, w_g)
+        horizon = xc.horizon_times(dnet, n, t_all, spec.t_end,
+                                   horizon_cap=spec.horizon_cap)
+        horizon = horizon[offset:offset + n_local]
+        runnable = xc.runnable_mask(sts.t, horizon)
+        sts, eq_t, spiked, t_sp, nd, nrs = advance(
+            sts, eq_t, eq_a, eq_g, horizon, runnable, iinj_l)
+        # --- the generic insert over all E edges, this rank's targets -----
+        spiked_all = group.all_gather(spiked, SPIKES_TAG)
+        tsp_all = group.all_gather(t_sp, SPIKES_TAG)
+        eq = qops.wrap(eq_t, eq_a, eq_g,
+                       torch.zeros((), dtype=torch.int32, device=dev))
+        if bool(spiked_all.any()):
+            # a spike-free round inserts nothing: skipping is identical
+            tgt = post - offset
+            valid = spiked_all[pre] & (tgt >= 0) & (tgt < n_local)
+            t_ev = tsp_all[pre] + delay
+            eq = qops.insert(eq, tgt, t_ev, w_a, w_g, valid)
+        tele = torch.stack([nd.sum(), nrs.sum(),
+                            eq.dropped.to(torch.int64)]).to(torch.int64)
+        nd, nrs, dropped = group.all_reduce(tele, "sum", OTHER_TAG)
+        return (sts, eq.t, eq.w_ampa, eq.w_gaba, spiked, t_sp, nd, nrs,
+                dropped, 0, zero)
+
+    fap_round.incremental = False
+    return fap_round
+
+
 def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
                  opts: bdf.BDFOptions = bdf.BDFOptions(),
                  optimized: bool = True, queue: str = "dense",
@@ -279,6 +355,8 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
     with the same arguments and gets the whole network's ``RunResult``, in
     the caller's neuron order, and the round count.
 
+    ``optimized`` (default True, as in JAX's ``run_fap_spmd``) picks the
+    shard-local round; False the global round (``build_fap_round``).
     Each rank records its own neurons' spikes; the records, final states
     and solver counters are gathered once at the end.  ``dropped`` counts
     queue and parcel overflow.  ``placement``: a ``placement.Placement``
@@ -334,6 +412,9 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
     static = tuple(shard_rows(x, group) for x in
                    (dnet.pre, dnet.delay, dnet.w_ampa, dnet.w_gaba)) + \
         (shard_rows(xc.per_neuron(iinj, n, dev), group),)
+    if not optimized:
+        # the global round reads the whole network's edge arrays
+        static = tuple(dnet) + static[-1:]
     neuron_ids = torch.arange(n_local, dtype=torch.int64, device=dev)
 
     def seed_hcarry(t_local, table=None):
@@ -355,7 +436,7 @@ def run_fap_spmd(model: CellModel, net, iinj, t_end: float, group,
 
     def init_fn():
         Y = xc.batch_init(model, n_local)
-        sts = bdf.reinit(model, 0.0, Y, static[4], opts)
+        sts = bdf.reinit(model, 0.0, Y, static[-1], opts)
         eq = qops.make(n_local, dev)
         z = torch.zeros((), dtype=torch.int64, device=dev)
         return xc.SimCarry(sts, (eq.t, eq.w_ampa, eq.w_gaba),

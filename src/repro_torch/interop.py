@@ -210,23 +210,31 @@ def sim_carry_to_numpy(sc) -> dict:
 def tenant_carry_from_numpy(carry, device) -> tuple:
     """The service's batched round carry of JAX (``stack_lanes`` of
     ``init_carry`` carries, every leaf with a leading [T] axis: (sts, eq,
-    rec, n_ev, n_rs, stats, rounds), numpy leaves) -> the port's, the
-    input of ``run.tenant_round`` (``rounds`` an i64[T] tensor, as the
-    port's ``serve.stack_lanes`` makes it)."""
-    sts, eq, rec, n_ev, n_rs, stats, rounds = carry
+    rec, n_ev, n_rs, stats, rounds), or (sts, eq, rec, horizon, n_ev,
+    n_rs, stats, rounds) under the incremental horizon; numpy leaves) ->
+    the port's, the input of ``run.tenant_round`` (``rounds`` an i64[T]
+    tensor, as the port's ``serve.stack_lanes`` makes it)."""
+    sts, eq, rec = carry[:3]
+    hor = tuple(_tensor(h, device) for h in carry[3:-4])
+    n_ev, n_rs, stats, rounds = carry[-4:]
     return (bdf_state_from_numpy(sts, device), _queue_from_numpy(eq, device),
-            spike_record_from_numpy(rec, device), _tensor(n_ev, device),
-            _tensor(n_rs, device), sched_stats_from_numpy(stats, device),
-            torch.as_tensor(np.asarray(rounds, np.int64), device=device))
+            spike_record_from_numpy(rec, device)) + hor + \
+        (_tensor(n_ev, device), _tensor(n_rs, device),
+         sched_stats_from_numpy(stats, device),
+         torch.as_tensor(np.asarray(rounds, np.int64), device=device))
 
 
 def tenant_carry_to_numpy(carry) -> tuple:
-    """The port's batched round carry -> a tuple of the same slots, as
-    dicts of numpy arrays and arrays."""
-    sts, eq, rec, n_ev, n_rs, stats, rounds = carry
+    """The port's batched round carry (7 slots, or 8 with the incremental
+    horizon) -> a tuple of the same slots, as dicts of numpy arrays and
+    arrays."""
+    sts, eq, rec = carry[:3]
+    n_ev, n_rs, stats, rounds = carry[-4:]
     return (bdf_state_to_numpy(sts), _queue_to_numpy(eq),
-            spike_record_to_numpy(rec), _numpy(n_ev), _numpy(n_rs),
-            sched_stats_to_numpy(stats), _numpy(rounds))
+            spike_record_to_numpy(rec)) + \
+        tuple(_numpy(h) for h in carry[3:-4]) + \
+        (_numpy(n_ev), _numpy(n_rs), sched_stats_to_numpy(stats),
+         _numpy(rounds))
 
 
 _STACKED = ("layers", "enc", "dec")

@@ -56,7 +56,8 @@ _LIBS: dict = {}
 _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
             "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
-            "compact_gather": 0, "segment_rank": 0, "compact_rows": 0,
+            "compact_gather": 0, "compact_ids_rows": 0,
+            "compact_gather_rows": 0, "segment_rank": 0, "compact_rows": 0,
             "flash_attention": 0, "flash_attention_f32_decode": 0,
             "flash_attention_f32_prefill": 0, "flash_attention_prefill": 0,
             "flash_attention_decode": 0, "flash_attention_bwd_dq": 0,

@@ -8,6 +8,10 @@
 * K6 ``compact_ids_cuda`` and K7 ``compact_gather_cuda``
   (``csrc/compact.cu``) replace ``compact_ids_pallas`` and
   ``compact_gather_pallas``.
+* ``compact_ids_rows_cuda`` and ``compact_gather_rows_cuda``
+  (``csrc/compact.cu``) are K6 and K7 on each row of a [T, N] mask in one
+  launch: what ``jax.vmap`` makes of ``compact_ids_pallas`` and
+  ``compact_gather_pallas`` over the simulation service's tenants.
 * K8 ``segment_rank_cuda`` (``csrc/segment_rank.cu``) replaces
   ``segment_rank_pallas``.
 * K9 ``compact_rows_cuda`` (``csrc/compact.cu``) replaces
@@ -41,6 +45,9 @@ _SIGNATURES = {
     "compact": {"compact_ids_launch": [_P, _I32, _I32, _P, _P, _P],
                 "compact_gather_launch": [_P, _I32, _P, _I32, _I32, _I32, _P,
                                           _P, _P, _P],
+                "compact_ids_rows_launch": [_P, _I32, _I32, _I32, _P, _P, _P],
+                "compact_gather_rows_launch": [_P, _I32, _I32, _P, _I32, _I32,
+                                               _I32, _P, _P, _P, _P],
                 "compact_rows_launch": [_P, _I64, _I64, _P, _I64, _I64, _I32,
                                         _I32, _I32, _P, _P, _P, _P]},
     "segment_rank": {"segment_rank_launch": [_P, _I32, _I32, _P, _P]},
@@ -135,7 +142,7 @@ def compact_ids_cuda(mask, cap: int):
 
 def _check_table(mask, table):
     if table.dtype != torch.int32 or table.dim() != 2 \
-            or table.shape[0] != mask.shape[0] or not table.is_contiguous() \
+            or table.shape[0] != mask.shape[-1] or not table.is_contiguous() \
             or table.device != mask.device:
         raise ValueError("table must be a contiguous int32[N, MO] on the "
                          "mask's device")
@@ -169,6 +176,74 @@ def compact_gather_cuda(mask, table, cap: int, fill: int):
         build.stream_ptr(dev))
     build.check(err, "compact_gather")
     build.count("compact_gather")
+    return ids, rows, cnt
+
+
+def _check_mask_rows(mask, cap: int):
+    if not mask.is_cuda or mask.dtype != torch.bool or mask.dim() != 2 \
+            or not mask.is_contiguous():
+        raise ValueError("mask must be a contiguous bool[T, N] CUDA tensor")
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
+    if mask.shape[0] > 65535:
+        raise ValueError(f"at most 65535 rows, got {mask.shape[0]}")
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_ids_rows_launch():
+    return _lib("compact").compact_ids_rows_launch
+
+
+def compact_ids_rows_cuda(mask, cap: int):
+    """mask bool[T, N] -> (ids i32[T, cap], count i32[T]): ``compact_ids_cuda``
+    on each row, one launch."""
+    if not (mask.is_cuda and mask.dtype == torch.bool and mask.dim() == 2
+            and mask.is_contiguous() and cap >= 1
+            and mask.shape[0] <= 65535):
+        _check_mask_rows(mask, cap)
+    T, N = mask.shape
+    cap = int(cap)
+    ids = torch.empty((T, cap), dtype=torch.int32, device=mask.device)
+    cnt = torch.empty((T,), dtype=torch.int32, device=mask.device)
+    if T:
+        err = _compact_ids_rows_launch()(
+            mask.data_ptr(), T, N, cap, ids.data_ptr(), cnt.data_ptr(),
+            build.stream_ptr(mask.device))
+        build.check(err, "compact_ids_rows")
+        build.count("compact_ids_rows")
+    return ids, cnt
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_gather_rows_launch():
+    return _lib("compact").compact_gather_rows_launch
+
+
+def compact_gather_rows_cuda(mask, table, cap: int, fill: int):
+    """mask bool[T, N], table i32[N, MO] -> (ids i32[T, cap], rows i32[T,
+    cap, MO], count i32[T]): ``compact_gather_cuda`` on each row against
+    the one table, one launch."""
+    if not (mask.is_cuda and mask.dtype == torch.bool and mask.dim() == 2
+            and mask.is_contiguous() and cap >= 1
+            and mask.shape[0] <= 65535 and table.dtype == torch.int32
+            and table.dim() == 2 and table.shape[0] == mask.shape[1]
+            and table.is_contiguous() and table.device == mask.device):
+        _check_mask_rows(mask, cap)
+        _check_table(mask, table)
+    dev = mask.device
+    T = mask.shape[0]
+    n, mo = table.shape
+    cap = int(cap)
+    ids = torch.empty((T, cap), dtype=torch.int32, device=dev)
+    rows = torch.empty((T, cap, mo), dtype=torch.int32, device=dev)
+    cnt = torch.empty((T,), dtype=torch.int32, device=dev)
+    if T:
+        err = _compact_gather_rows_launch()(
+            mask.data_ptr(), T, n, table.data_ptr(), mo, cap, int(fill),
+            ids.data_ptr(), rows.data_ptr(), cnt.data_ptr(),
+            build.stream_ptr(dev))
+        build.check(err, "compact_gather_rows")
+        build.count("compact_gather_rows")
     return ids, rows, cnt
 
 

@@ -1,8 +1,9 @@
 """Scheduler-kernel dispatch (K5-K9), the by-post layout and threshold
 selection.  Counterpart of ``repro.kernels.event_wheel.ops``.
 
-``horizon_score``, ``compact_ids``, ``compact_gather``, ``segment_rank``
-and ``spike_compact`` launch the CUDA kernel for CUDA tensors and run the
+``horizon_score``, ``compact_ids``, ``compact_gather``, their rows forms
+``compact_ids_rows`` and ``compact_gather_rows``, ``segment_rank`` and
+``spike_compact`` launch the CUDA kernel for CUDA tensors and run the
 plain version for CPU tensors -- no fallback and no ``impl=`` knob.  The JAX
 wrappers' ``domain="batch"`` key remap and scatter-min ``impl`` are
 workarounds for running off the TPU; the pairwise ranking here needs
@@ -16,11 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.event_wheel import ref
-from repro_torch.kernels.event_wheel.event_wheel import (compact_gather_cuda,
-                                                         compact_ids_cuda,
-                                                         compact_rows_cuda,
-                                                         horizon_score_cuda,
-                                                         segment_rank_cuda)
+from repro_torch.kernels.event_wheel.event_wheel import (
+    compact_gather_cuda, compact_gather_rows_cuda, compact_ids_cuda,
+    compact_ids_rows_cuda, compact_rows_cuda, horizon_score_cuda,
+    segment_rank_cuda)
 
 
 def _on_cuda(x, what: str) -> bool:
@@ -61,6 +61,26 @@ def compact_gather(mask, table, cap: int, *, fill: int = None):
     if _on_cuda(mask, "compact_gather"):
         return compact_gather_cuda(mask, table, cap, fill)
     return ref.compact_gather_ref(mask, table, cap, fill)
+
+
+def compact_ids_rows(mask, cap: int):
+    """``compact_ids`` on each row of a bool[T, N] mask in one launch (K6's
+    rows form; the tenants of ``exec_fap``'s ``tenant_round``): (ids
+    i32[T, cap], count i32[T])."""
+    if _on_cuda(mask, "compact_ids_rows"):
+        return compact_ids_rows_cuda(mask, cap)
+    return ref.compact_ids_rows_ref(mask, cap)
+
+
+def compact_gather_rows(mask, table, cap: int, *, fill: int = None):
+    """``compact_gather`` on each row of a bool[T, N] mask against the one
+    i32[N, MO] table, in one launch (K7's rows form): (ids i32[T, cap],
+    rows i32[T, cap, MO], count i32[T])."""
+    if fill is None:
+        fill = mask.shape[1]
+    if _on_cuda(mask, "compact_gather_rows"):
+        return compact_gather_rows_cuda(mask, table, cap, fill)
+    return ref.compact_gather_rows_ref(mask, table, cap, fill)
 
 
 def segment_rank(key, max_rank: int):

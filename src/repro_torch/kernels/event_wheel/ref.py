@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the scheduler kernels (K5 horizon, K6
-compaction, K7 compact-gather, K8 segment rank, K9 row compaction) and the
-sort-based earliest-K oracle.
+compaction, K7 compact-gather and their rows forms, K8 segment rank, K9 row
+compaction) and the sort-based earliest-K oracle.
 
 ``segment_rank_split_ref``, ``compact_rows_packed_ref`` and
 ``compact_gather_sched_ref`` model the CUDA kernels' schedules
@@ -81,6 +81,35 @@ def compact_gather_ref(mask, table, cap: int, fill: int):
     ids, cnt = compact_ids_ref(mask, cap)
     rows = table[torch.clamp(ids, max=n - 1).long()]
     rows = torch.where((ids < n)[:, None], rows, fill).to(torch.int32)
+    return ids, rows, cnt
+
+
+def compact_ids_rows_ref(mask, cap: int):
+    """K6's rows form, plain: ``compact_ids_ref`` on each row of a bool[T,
+    N] mask, as one row-wise cumsum and scatter.  Returns (ids i32[T, cap],
+    count i32[T])."""
+    T, n = mask.shape
+    dev = mask.device
+    msk = mask.to(torch.int32)
+    csum = torch.cumsum(msk, 1, dtype=torch.int32)
+    pos = csum - msk
+    slot = torch.where((msk == 1) & (pos < cap), pos, cap).long()
+    ids = torch.full((T, cap + 1), n, dtype=torch.int32, device=dev)
+    ids.scatter_(1, slot, torch.arange(n, dtype=torch.int32, device=dev)
+                 .expand(T, n))
+    cnt = csum[:, -1] if n else torch.zeros((T,), dtype=torch.int32,
+                                            device=dev)
+    return ids[:, :cap], cnt
+
+
+def compact_gather_rows_ref(mask, table, cap: int, fill: int):
+    """K7's rows form, plain: ``compact_gather_ref`` on each row of a
+    bool[T, N] mask against the one i32[N, MO] table.  Returns (ids i32[T,
+    cap], rows i32[T, cap, MO], count i32[T])."""
+    n = mask.shape[1]
+    ids, cnt = compact_ids_rows_ref(mask, cap)
+    rows = table[torch.clamp(ids, max=n - 1).long()]
+    rows = torch.where((ids < n)[:, :, None], rows, fill).to(torch.int32)
     return ids, rows, cnt
 
 

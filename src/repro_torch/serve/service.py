@@ -4,8 +4,9 @@ of ``repro.serve.service``.
 
 ``SimService`` drives T lanes of one FAP round (``run.tenant_round``: the
 tenants' networks side by side as T*N lanes, per-tenant stimulus, lane
-mask and QoS frontier cap) and a host-side state machine at round
-boundaries:
+mask and QoS frontier cap; under a runner's active-set knobs each tenant
+also its own compact batch, fan-out and incremental horizon) and a
+host-side state machine at round boundaries:
 
   admission   -- a bounded queue admits experiments into free lanes,
                  highest QoS class first, FIFO within a class; a full
@@ -105,8 +106,10 @@ class SimService:
                   ``fail_at_round`` (service rounds) simulates a
                   preemption of the whole service.
     runner:       a ``make_fap_vardt_runner`` product to share between
-                  services; else one is built from ``model``, ``net``,
-                  ``t_end`` and ``runner_kwargs``.
+                  services, with any of its knobs (the compact batch and
+                  fan-out, the wheel, either horizon); else one is built
+                  from ``model``, ``net``, ``t_end`` and
+                  ``runner_kwargs``.
     """
 
     def __init__(self, model=None, net=None, t_end: float = 10.0, *,

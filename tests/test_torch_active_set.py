@@ -87,8 +87,14 @@ def test_unknown_modes_and_unported_knobs():
     # the robustness knobs are ported; checkpoints need a directory
     with pytest.raises(ValueError, match="ckpt_dir"):
         run(checkpoint_every=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run.tenant_round(run.init_carry(), IINJ, True)
+    # the service's round takes the compact knobs since they were ported
+    # (held to JAX in tests/test_torch_serve_compact.py)
+    from repro_torch.serve import stack_lanes
+    out = run.tenant_round(stack_lanes([run.init_carry()] * 2),
+                           np.stack([IINJ, IINJ]),
+                           torch.ones(2, dtype=torch.bool))
+    assert out[0].t.shape == (2, IINJ.shape[0])
+    assert bool((out[0].t > 0).any(dim=1).all())
 
 
 # ------------------------------------------------- helpers against JAX ---

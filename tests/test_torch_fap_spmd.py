@@ -2,7 +2,8 @@
 ranks on the CPU, against live JAX ``run_fap_spmd`` on four host devices.
 
 The configurations of ``tests/test_fap_spmd.py`` (soma_only, N = 32, k_in
-= 4, seed 3, six transports and knobs plus a placed block net, 6 ms):
+= 4, seed 3, six transports and knobs plus a placed block net, and the
+paper-faithful global round ``optimized=False``, 6 ms):
 
 * against JAX -- spike counts exact and spike times within ``T_TOL`` at
   6 ms; every counter (steps, solver counters, events, resets, drops,
@@ -10,16 +11,19 @@ The configurations of ``tests/test_fap_spmd.py`` (soma_only, N = 32, k_in
   apart (ROADMAP §3); and, for ``sparse`` and ``allgather``, each round run
   from JAX's own carried state with every counter exact;
 * inside the port, exactly -- ``sparse`` == ``allgather`` == the full
-  stack == the single-host ``run_fap_vardt(step_budget=8)``, and the
-  placed run == its unplaced single-host anchor;
+  stack == the global round == the single-host
+  ``run_fap_vardt(step_budget=8)``, the global round with the wheel queue
+  == ``allgather`` with it, and the placed run == its unplaced
+  single-host anchor;
 * drops, bytes -- overflow fires ``dropped``; the per-channel byte
   counters show ragged parcels at or below the static cap's, parcel bytes
   set by the cap and not by N, and a placed block net's notify bytes
   below a uniform net's by the frontier ratio (these stand in for the
   JAX tests' compiled-HLO byte attribution).
 
-JAX runs in two subprocesses (the host device count locks at its first
-initialisation), in parallel with the port's ranks.
+JAX runs in four subprocesses (the host device count locks at its first
+initialisation; the 6 ms runs, the 3 ms runs, the global round's 6 and 3
+ms runs and the round records), in parallel with the port's ranks.
 """
 import os
 import pickle
@@ -61,6 +65,11 @@ CONFIGS = {
     "placed": (dict(transport="sparse", parcel_cap=8, placement="greedy"),
                True),
 }
+# the global round runs in a JAX subprocess of its own
+GLOBAL = {"global": (dict(optimized=False), False)}
+# port-only runs at T_END: the global round and allgather on the wheel
+WHEEL = {"global_wheel": dict(optimized=False, queue="wheel"),
+         "allgather_wheel": dict(transport="allgather", queue="wheel")}
 
 JAX_SCRIPT = r"""
 import os
@@ -104,11 +113,14 @@ def knobs(kw):
     return kw
 
 
-t_end = 6.0 if mode == "t6" else 3.0
-for name, (kw, block) in configs.items() if mode != "rounds" else ():
+t_ends = {"t6": (6.0,), "t3": (3.0,), "global": (6.0, 3.0),
+          "rounds": ()}[mode]
+for t_end, (name, (kw, block)) in [(t, c) for t in t_ends
+                                   for c in configs.items()]:
     res, rounds = run_fap_spmd(model, nets[block], iinj, t_end, mesh,
                                max_rounds=60, **knobs(kw))
-    out[name] = {"times": np.asarray(res.rec.times),
+    key = f"{name}/{t_end}" if mode == "global" else name
+    out[key] = {"times": np.asarray(res.rec.times),
                  "count": np.asarray(res.rec.count),
                  "n_steps": int(res.n_steps), "n_events": int(res.n_events),
                  "n_resets": int(res.n_resets), "dropped": int(res.dropped),
@@ -198,10 +210,14 @@ def _port_ranks(group):
                                    max_rounds=60, **_knobs(kw))
         return _summary(res, rounds)
 
-    for name, (kw, block) in CONFIGS.items():
+    for name, (kw, block) in {**CONFIGS, **GLOBAL}.items():
         for t_end in (T_FULL, T_END):
             out[f"{name}/{t_end}"] = run(_net(block=block), _iinj(), t_end,
                                          **kw)
+    from repro_torch.sched import WheelSpec
+    for name, kw in WHEEL.items():
+        out[f"{name}/{T_END}"] = run(_net(), _iinj(), T_END,
+                                     wheel=WheelSpec.auto(_net()), **kw)
     hot = _iinj(base=0.20)
     out["overflow"] = run(_net(), hot, T_END, transport="sparse",
                           parcel_cap=1)
@@ -238,7 +254,8 @@ def _port_from_jax_rounds(group, path):
                     xc.per_neuron(_iinj(), N, "cpu")))
     out = {}
     for tr in ("sparse", "allgather"):
-        fn = build_fap_round(model, spec, group, transport=tr,
+        fn = build_fap_round(model, spec, group, optimized=True,
+                             transport=tr,
                              exchange=ExchangeSpec(parcel_cap=8), net=net)
         got = []
         for r in data["rounds/" + tr]:
@@ -263,15 +280,16 @@ def _port_from_jax_rounds(group, path):
 
 @pytest.fixture(scope="module")
 def jax_procs(tmp_path_factory):
-    """Start the JAX subprocesses (the 6 ms runs, the 3 ms runs, the round
-    records) before the port's ranks, so that they all overlap."""
+    """Start the JAX subprocesses (the 6 ms runs, the 3 ms runs, the global
+    round's runs, the round records) before the port's ranks, so that they
+    all overlap."""
     d = tmp_path_factory.mktemp("jax_spmd")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("XLA_FLAGS", None)
-    cfg = pickle.dumps(CONFIGS).hex()
     procs = {}
-    for mode in ("t6", "t3", "rounds"):
+    for mode in ("t6", "t3", "global", "rounds"):
         path = str(d / f"{mode}.pkl")
+        cfg = pickle.dumps(GLOBAL if mode == "global" else CONFIGS).hex()
         procs[mode] = (subprocess.Popen(
             [sys.executable, "-c", JAX_SCRIPT, mode, path, cfg], env=env,
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -296,13 +314,26 @@ def port(jax_procs):
 
 
 @pytest.fixture(scope="module")
+def jax_global(jax_procs, port):
+    return _jax_result(jax_procs, "global")
+
+
+def _jax_at(procs, mode, t_end, name):
+    """JAX's run of ``name`` at ``t_end``: the global round's from its own
+    subprocess, the others' from the subprocess of ``mode``."""
+    if name in GLOBAL:
+        return _jax_result(procs, "global")[f"{name}/{t_end}"]
+    return _jax_result(procs, mode)[name]
+
+
+@pytest.fixture(scope="module")
 def jax6(jax_procs, port):
-    return _jax_result(jax_procs, "t6")
+    return lambda name: _jax_at(jax_procs, "t6", T_END, name)
 
 
 @pytest.fixture(scope="module")
 def jax3(jax_procs, port):
-    return _jax_result(jax_procs, "t3")
+    return lambda name: _jax_at(jax_procs, "t3", T_FULL, name)
 
 
 @pytest.fixture(scope="module")
@@ -321,9 +352,9 @@ def _same_trains(a, b, spk_cap):
     assert np.array_equal(a["times"][:, :spk_cap], b["times"][:, :spk_cap])
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", list(CONFIGS) + list(GLOBAL))
 def test_spike_trains_match_live_jax(port, jax6, name):
-    p, j = port[f"{name}/{T_END}"], jax6[name]
+    p, j = port[f"{name}/{T_END}"], jax6(name)
     assert int(j["count"].sum()) > 0
     assert np.array_equal(p["count"], j["count"])
     fin = np.isfinite(j["times"])
@@ -338,9 +369,9 @@ def test_spike_trains_match_live_jax(port, jax6, name):
     assert h["clock_regressions"] == h["horizon_violations"] == 0
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", list(CONFIGS) + list(GLOBAL))
 def test_counters_match_live_jax_to_3ms(port, jax3, name):
-    p, j = port[f"{name}/{T_FULL}"], jax3[name]
+    p, j = port[f"{name}/{T_FULL}"], jax3(name)
     for k in ("n_steps", "n_events", "n_resets", "dropped", "failed",
               "rounds", "parcel_bytes"):
         assert p[k] == j[k], k
@@ -352,7 +383,8 @@ def test_counters_match_live_jax_to_3ms(port, jax3, name):
                                atol=T_TOL)
 
 
-@pytest.mark.parametrize("name", [k for k in CONFIGS if k != "placed"])
+@pytest.mark.parametrize("name", [k for k in CONFIGS if k != "placed"]
+                         + list(GLOBAL))
 def test_every_knob_equals_allgather_and_single_host(port, single_host,
                                                      name):
     """Inside the port the transports and knobs change no event and no
@@ -367,6 +399,26 @@ def test_every_knob_equals_allgather_and_single_host(port, single_host,
     _same_trains(p, sh, 128)
     assert np.array_equal(p["y"], sh["y"])
     assert p["n_steps"] == sh["n_steps"] and p["n_events"] == sh["n_events"]
+
+
+def test_global_wheel_round_equals_allgather_wheel(port):
+    """The global round's generic wheel insert (K8 over all E events)
+    gives what the shard-local grouped wheel insert gives: every bit of
+    the trains, final states and counters, and the same bytes on its own
+    channels as allgather's two."""
+    g, a = port[f"global_wheel/{T_END}"], port[f"allgather_wheel/{T_END}"]
+    assert int(a["count"].sum()) > 0
+    _same_trains(g, a, 128)
+    assert np.array_equal(g["y"], a["y"])
+    for k in ("n_steps", "n_events", "n_resets", "dropped", "rounds",
+              "solver"):
+        assert g[k] == a[k], k
+    gc, ac = g["channels"], a["channels"]
+    assert gc["global_clocks"]["bytes"] == ac["exchange_notify"]["bytes"]
+    assert gc["global_spikes"]["bytes"] == ac["exchange_parcel"]["bytes"]
+    assert gc["global_spikes"]["calls"] == 2 * g["rounds"]
+    assert "exchange_notify" not in gc and g["parcel_bytes"] == 0
+    assert g["parcel_peak"] == [0] * g["rounds"]
 
 
 def test_placed_run_equals_unplaced_anchor(port, single_host):
@@ -491,16 +543,29 @@ def test_rounds_from_jax_carry(jax_rounds, from_jax, tr):
 
 
 def test_unported_and_bad_knobs_raise():
-    """``optimized=False`` is a later slice; checkpoint knobs without a
-    directory and knob combinations JAX rejects are rejected."""
+    """The global round (``optimized=False``, the default of
+    ``build_fap_round`` as in JAX) builds and rejects what JAX's rejects,
+    in JAX's words; checkpoint knobs without a directory and the other
+    knob combinations JAX rejects are rejected."""
     from repro_torch.distributed.fap_spmd import (PaperNeuroSpec,
                                                   build_fap_round,
                                                   run_fap_spmd)
     g = grp.Group(0, 4, "gloo", "cpu")
     model = CellModel(morphology.soma_only(), device="cpu")
     spec = PaperNeuroSpec(n_neurons=N, k_in=K_IN)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_fap_round(model, spec, g, optimized=False)
+    assert not build_fap_round(model, spec, g).incremental
+    net = _net()
+    for kw, words in (
+            (dict(transport="sparse", net=net), "global path has no "
+             "explicit channels"),
+            (dict(batch="compact"), "global path has no shard-local "
+             "advance"),
+            (dict(fanout="compact", net=net), "compact fan-out is "
+             r"shard-local \(optimized=True\)"),
+            (dict(horizon="incremental", net=net), "incremental horizon "
+             r"maintenance needs the shard-local round \(optimized=True\)")):
+        with pytest.raises(ValueError, match=words):
+            build_fap_round(model, spec, g, optimized=False, **kw)
     for kw in (dict(checkpoint_every=2), dict(resume=True)):
         with pytest.raises(ValueError, match="ckpt_dir"):
             run_fap_spmd(model, _net(), 0.16, 1.0, g, **kw)
@@ -508,5 +573,5 @@ def test_unported_and_bad_knobs_raise():
                dict(horizon="incremental", batch="compact"),
                dict(batch="wide"), dict(fanout="compact")):
         with pytest.raises(ValueError):
-            build_fap_round(model, spec, g, **kw)
+            build_fap_round(model, spec, g, optimized=True, **kw)
 

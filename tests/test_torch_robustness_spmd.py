@@ -5,7 +5,8 @@ gloo ranks on the CPU (``distributed.group.launch``), the cases of
 * a run checkpointed every 5 rounds, killed at ~60 % of its rounds by a
   ``SimulatedFailure`` and resumed is bitwise the uninterrupted run
   (spike trains, steps, final states, parcel peaks), on a uniform and a
-  block net, with the dense queue and the wheel;
+  block net, with the dense queue and the wheel, and for the global round
+  (``optimized=False``);
 * a resume on two ranks of a four-rank checkpoint (the incremental
   horizon, whose carry depends on the layout) reseeds that carry, reports
   ``elastic_reseeded`` and is bitwise the four-rank run; a four-rank
@@ -35,6 +36,8 @@ CONFIGS = {
     # not depend on the number of ranks
     "elastic": (False, dict(SPARSE, batch="compact", batch_cap=8,
                             horizon="incremental")),
+    # the paper-faithful global round (its parcel cap goes unused)
+    "global": (False, dict(SPARSE, transport="allgather", optimized=False)),
 }
 
 

@@ -246,14 +246,25 @@ def test_lane_plumbing_never_mixes_lanes(runner):
 
 
 def test_compact_knobs_refused(runner):
+    """The compact batch and fan-out, once refused by ``tenant_round``, are
+    served: one round of two tenants moves both, and a ``SimService``
+    over the compact runner completes its tenants
+    (``tests/test_torch_serve_compact.py`` holds them to JAX)."""
     model = CellModel(morphology.soma_only(), device="cpu")
     run = exec_fap.make_fap_vardt_runner(
         model, network.make_network(N, k_in=4, seed=3), 0.0, T_END,
-        batch="compact", batch_cap=4, device="cpu")
+        batch="compact", batch_cap=4, fanout="compact", spike_cap=2,
+        device="cpu")
     carry = stack_lanes([run.init_carry(0.15)] * 2)
-    with pytest.raises(NotImplementedError, match="tenant_round"):
-        run.tenant_round(carry, torch.full((2,), 0.15),
-                         torch.ones(2, dtype=torch.bool))
+    out = run.tenant_round(carry, torch.full((2,), 0.15),
+                           torch.ones(2, dtype=torch.bool))
+    assert out[0].t.shape == (2, N) and bool((out[0].t > 0).any(dim=1).all())
+    assert out[-2].lanes.tolist() == [4, 4]
+    svc = SimService(runner=run, t_end=1.0, lanes=2)
+    for r in _reqs(2):
+        svc.submit(r)
+    res = svc.run()
+    assert res.completed == 2
 
 
 def test_sim_cli_on_the_cpu():
