@@ -32,7 +32,7 @@ Phases, each reported on its own lines:
      caps 1 and N, MO 1 and 64 on mask views 1-15 bytes off, and K8
      also at max_rank 0, on all-equal keys and on batches of the path's
      pattern at E = 4225, 18000 and 60000 (its chunked staging);
-  6. the dense path at N=64, 6 ms, on the card (kernels) and on the CPU
+  6. the dense path at N=64, 4 ms, on the card (kernels) and on the CPU
      (plain versions): spike trains and final states bitwise equal (the
      port rounds alike on both, ``repro_torch/core/detmath.py``);
   7. the active path at N=64, 6 ms, with a binding batch cap and a small
@@ -50,10 +50,10 @@ Phases, each reported on its own lines:
      10 ms); 2b BSP-vardt dense equals compact with a cap below the
      frontier (N=4096, 5 ms); 2c under ``jac_policy="iteration"`` (full
      width, 5 ms: nsetups == nni, K3 launched, K1/K2 not);
- 11. 2a and 2c-iteration at N=64 on the card and on the CPU: spike trains,
-     steps and final states bitwise equal;
+ 11. 2a and 2c-iteration at N=64, 6 ms, on the card and on the CPU: spike
+     trains, steps and final states bitwise equal;
  12. the SPMD round (``repro_torch.distributed.run_fap_spmd``) at full
-     width and 6 ms: four ranks share the card over gloo, on phase 3's
+     width and 4 ms: four ranks share the card over gloo, on phase 3's
      cell, network and currents, once with ``transport="sparse"`` and the
      dense knobs and once with the full stack (``sparse_ragged``, compact
      batch and fan-out, wheel queue, incremental horizon): both reach
@@ -68,7 +68,7 @@ Phases, each reported on its own lines:
      (timed in the transport's transposed layout); then D = 1, 3, 4 and 8
      at M = 4096 and 4097, transposed, in contiguous rows and as views
      1-15 bytes past an aligned base;
- 14. the SPMD round at N=256 on the card: ``allgather`` == ``sparse`` ==
+ 14. the SPMD round at N=256, 4 ms, on the card: ``allgather`` == ``sparse`` ==
      the global round (``optimized=False``) == the single-host
      ``run_fap_vardt(step_budget=8)``, and four card ranks == four CPU
      ranks bitwise for ``sparse`` and for the global round (spike trains,
@@ -109,13 +109,13 @@ Phases, each reported on its own lines:
      rho in [0, 1] and launches K1, K2, K4 and K5; rounds, steps, nni,
      nncf, nsetups and wall beside phase 3's;
  19. carefully-speculative 2c at full width: ``make_spec_runner`` on phase
-     3's cell, network and currents, 6 ms, with ``fanout="compact"``
+     3's cell, network and currents, 4 ms, with ``fanout="compact"``
      (phase 4's spike cap) and ``queue="wheel"``: nothing failed or
      dropped, hits + backsteps > 0, wasted steps >= backsteps, K1, K2, K4,
      K7 and K8 launched, total spikes within max(2, 10 %) of phase 3's
-     spikes before 6 ms; its ``SpecStats``, rounds, validated steps and
+     spikes before 4 ms; its ``SpecStats``, rounds, validated steps and
      wall;
- 20. phases 18 and 19's paths at N=64, 5 ms, card against CPU: 2c on the
+ 20. phases 18 and 19's paths at N=64, 4 ms, card against CPU: 2c on the
      plastic cell under schur with ``jac_policy`` "reuse" (K1/K2) and
      "iteration" (K3), and the speculative runner with dense and with
      compact fan-out: spike trains, steps, counters (solver counters,
@@ -136,12 +136,12 @@ Phases, each reported on its own lines:
      launched; rounds, ms per service round beside phase 3's, tenant-ms per
      wall second, admission waits, peak memory;
  24. card against CPU at N=64, bitwise: kill/resume and poison rollback
-     at 5 ms (each also equal to the plain run), and a 3-lane, 5-tenant
+     at 4 ms (each also equal to the plain run), and a 3-lane, 5-tenant
      service of 3 ms with a poisoned tenant, and its first 3 tenants over
      two compact runners (compact batch at N/2 and fan-out at spike cap 4,
      wheel; the incremental scatter horizon, and the fused one), the rows
      forms of K6 and K7 launched; then the SPMD round at
-     N=256, 5 ms on four card ranks (sparse, compact, incremental
+     N=256, 4 ms on four card ranks (sparse, compact, incremental
      horizon) killed and resumed on four ranks and on two (the elastic
      reseed), bitwise the uninterrupted run;
  25. the other LM families at full width: whisper-base, rwkv6-7b,
@@ -180,7 +180,7 @@ Phases, each reported on its own lines:
      ``train_step``s card against CPU, gradients, losses, grad norms and
      parameters within stated tolerances;
  30. the global SPMD round (``build_fap_round(optimized=False)``, the
-     paper-faithful baseline) at full width and 6 ms, four ranks on the
+     paper-faithful baseline) at full width and 4 ms, four ranks on the
      card, ``queue="dense"``: against phase 12's ``sparse`` run, spike
      counts per neuron, events, steps, resets and rounds exact, nothing
      dropped, spike times within 1e-9 ms (and whether all is bitwise);
@@ -196,13 +196,29 @@ Phases, each reported on its own lines:
      bitwise, on the busiest masks the service gave them and on masks of
      0-100 %, with their times and bounds; ms per service round and
      tenant-ms per wall second beside phase 23's;
+ 32. the dry run (``launch/dryrun.py``) against the card: smollm-135m on
+     the ``meta`` device at phase 28's training shape (batch 8 x seq 256,
+     an AdamW step under ``remat`` at lr 1e-4) and phase 16's decode shape
+     (4 slots, cache 256), on the card's own (1, 1) mesh, where every
+     collective term is 0; then the same training step for real on the
+     card, after a warm-up step: its ``max_memory_allocated`` against the
+     dry run's ``peak_bytes_one_device`` within ``MEM_RATIO``, K10's
+     forward (the bf16 prefill kernel, twice a layer under ``remat``) and
+     both backward kernels launched (counts zeroed just before it), and
+     one real decode step (the decode kernel once a layer); the step's
+     bound from ``counted_flops`` at 67 TFLOP/s (float32, what
+     ``common.mm`` runs) and 989 TFLOP/s (bf16) and the measured ms's
+     share of each, printed beside the card's name and power limit;
  21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path and of phase 25's
      four families, and of that many full-width smollm-135m training
      steps (device busy share, busiest kernels).
 
-Phases 3, 4, 9, 18 and 22 run 6 ms (``--t-end``).  Each phase's wall is
+Phases 3, 4, 9, 18 and 22 run 5 ms (``--t-end``; phase 4's auto-cap
+probe runs min(t_end, 5) ms, so its caps, and phase 31's, are those of
+a 6 ms run), the SPMD phases 12 and 30 and the speculative phase 19 4
+ms.  Each phase's wall is
 printed as it ends (``[wall]``) and all of them on the ``[done]`` line.
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
@@ -299,8 +315,8 @@ SPEC_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
 ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
               spike_cap="auto", queue="wheel")
 RANKS = 4                      # SPMD ranks, all on cuda:0 (one card)
-SPMD_T_END = 6.0               # simulated ms of the full-width SPMD runs
-SPEC_T_END = 6.0               # ... and of the speculative run (phase 19)
+SPMD_T_END = 4.0               # simulated ms of the full-width SPMD runs
+SPEC_T_END = 4.0               # ... and of the speculative run (phase 19)
 PARCEL_CAP = 2048              # parcel slots per (source, dest) rank pair
 SPMD_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
              "compact_rows")
@@ -960,7 +976,7 @@ def phase_sched_kernels(dev, act):
 
 
 # ---------------------------------------------------------------- phase 6 --
-def phase_card_vs_cpu(dev, n=64, t_end=6.0):
+def phase_card_vs_cpu(dev, n=64, t_end=4.0):
     t0 = time.perf_counter()
     gpu, _ = _run(dev, n, t_end)
     cpu, _ = _run("cpu", n, t_end)
@@ -1239,7 +1255,7 @@ def phase_other_baselines(dev, n_2b=4096, t_fixed=10.0, t_vardt=5.0):
 
 
 # --------------------------------------------------------------- phase 11 --
-def phase_baselines_card_vs_cpu(dev, n=64, t_end=10.0):
+def phase_baselines_card_vs_cpu(dev, n=64, t_end=6.0):
     from repro_torch.core.bdf import BDFOptions
     from repro_torch.core.exec_bsp import run_bsp_fixed
     from repro_torch.core.exec_fap import make_fap_vardt_runner
@@ -1482,7 +1498,7 @@ def phase_parcel_kernel(dev, path_mask):
 
 
 # --------------------------------------------------------------- phase 14 --
-def phase_spmd_small(dev, n=256, t_end=5.0):
+def phase_spmd_small(dev, n=256, t_end=4.0):
     """At N=256: allgather == sparse == the single-host runner on the card;
     four card ranks == four CPU ranks."""
     from repro_torch.core.exec_fap import run_fap_vardt
@@ -2093,7 +2109,7 @@ def phase_speculative(dev, t_end, main, spike_cap, smi):
 
 
 # --------------------------------------------------------------- phase 20 --
-def phase_new_paths_card_vs_cpu(dev, smi, n=64, t_end=5.0, spike_cap=4):
+def phase_new_paths_card_vs_cpu(dev, smi, n=64, t_end=4.0, spike_cap=4):
     """Phases 18 and 19's paths at N=64, card against CPU bitwise; on the
     card the speculative dense fan-out equals the compact one."""
     from repro_torch.kernels import build
@@ -2428,7 +2444,7 @@ def _spmd_robust_rank(group, n, t_end, d, world_of_ckpt):
     return dict(base=base, resumed=run(ckpt_dir=d, resume=True))
 
 
-def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=5.0, lanes=3, tenants=5,
+def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=4.0, lanes=3, tenants=5,
                              t_service=3.0, n_spmd=256):
     """Kill/resume and poison rollback at N = 64, card against CPU
     bitwise; a 3-lane, 5-tenant service card against CPU bitwise; the
@@ -3614,9 +3630,147 @@ def phase_profile_serve(dev, n_steps, t_pos=128, arch=LM_ARCH):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 32 --
+DRYRUN_TRAIN = (8, 256)        # phase 28's training shape: batch x seq
+DRYRUN_DECODE = (4, 256)       # phase 16's decode shape: slots x cache
+# The card's peak over one training step against the dry run's
+# ``peak_bytes_one_device`` (its storages on ``meta``: arguments, the
+# step's activations, gradients and the new parameters and moments); the
+# caching allocator rounds every block up to 512 bytes and holds cuBLAS's
+# workspace besides.  Set from the first card run, which measured 1.0489
+# ("NVIDIA H100 80GB HBM3, 700.00 W"): the allocator's rounding is
+# deterministic, so the bound leaves about 5 % on either side of it.
+MEM_RATIO = (1.0, 1.10)
+F32_RATE, BF16_RATE = 67e12, 989e12     # dense peaks of the H100 SXM
+
+
+def phase_dryrun(dev, smi):
+    """The dry run of smollm-135m on ``meta`` at phase 28's training
+    shape and phase 16's decode shape, on the card's mesh, against one
+    real training step and one decode step on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    mesh = make_local_mesh()
+    if mesh.sizes != (1, 1):
+        raise AssertionError(f"the card's mesh is {mesh}, not (1, 1)")
+    shapes = {"train": ShapeConfig("phase28", DRYRUN_TRAIN[1],
+                                   DRYRUN_TRAIN[0], "train"),
+              "decode": ShapeConfig("phase16", DRYRUN_DECODE[1],
+                                    DRYRUN_DECODE[0], "decode")}
+    t0 = time.perf_counter()
+    recs = {k: dryrun.count_cell(cfg, s, mesh, skip_delta=True)
+            for k, s in shapes.items()}
+    dry_s = time.perf_counter() - t0
+    for k, rec in recs.items():
+        if rec["collective_bytes_per_device"] or \
+                any(rec["collective_terms"].values()):
+            raise AssertionError(f"dry run {k} on (1, 1): collectives "
+                                 f"{rec['collective_terms']}")
+    # the same training step on the card: phase 28's model and data
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    opt = adamw_init(params)
+    batch = DataPipeline(cfg, shapes["train"], seed=0,
+                         device=dev).next_batch()
+
+    def step():
+        return lm.train_step(cfg, params, opt, batch, dryrun.LR, remat=True,
+                             device=dev)
+
+    step()                                       # warm-up, discarded
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, _, metrics = step()
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t1]
+    peak = torch.cuda.max_memory_allocated()
+    counts = build.launches()
+    del metrics
+    for _ in range(2):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = statistics.median(times) * 1e3
+    want = {"flash_attention_prefill": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkdv": L}
+    if not np.isfinite(loss) or \
+            any(counts.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"phase 32's training step: loss {loss}, K10 "
+                             f"launches {counts}, want {want}")
+    pred = recs["train"]["peak_bytes_one_device"]
+    ratio = peak / pred
+    if not MEM_RATIO[0] <= ratio <= MEM_RATIO[1]:
+        raise AssertionError(f"training step peak {peak} B against the dry "
+                             f"run's {pred} B: ratio {ratio:.4f} outside "
+                             f"{MEM_RATIO}")
+    flops = recs["train"]["counted_flops"]
+    bound = {"float32": flops / F32_RATE * 1e3,
+             "bfloat16": flops / BF16_RATE * 1e3}
+    # one decode step at phase 16's shape
+    B, S = DRYRUN_DECODE
+    state = lm.make_decode_state(cfg, B, S, device=dev)
+    token = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    del batch, opt                    # the decode step holds params only
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = lm.decode_step(cfg, params, token, state, S - 1, device=dev)
+    torch.cuda.synchronize()
+    dec_peak = torch.cuda.max_memory_allocated()
+    dec_counts = build.launches()
+    if dec_counts.get("flash_attention_decode", 0) != L or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phase 32's decode step: K10 launches "
+                             f"{dec_counts}, want {L} decode")
+    dec_pred = recs["decode"]["peak_bytes_one_device"]
+    stats = dict(
+        arch=cfg.name, train_shape=DRYRUN_TRAIN, decode_shape=DRYRUN_DECODE,
+        dryrun_seconds=dry_s, model_flops=recs["train"]["model_flops"],
+        counted_flops=flops,
+        attention_flops=recs["train"]["attention_flops"],
+        argument_bytes=recs["train"]["argument_bytes"],
+        predicted_peak_bytes=pred, measured_peak_bytes=peak,
+        peak_ratio=ratio, mem_ratio_bound=MEM_RATIO, ms_per_step=ms,
+        step_ms=[t * 1e3 for t in times], bound_ms=bound,
+        share_of_bound={k: v / ms for k, v in bound.items()},
+        decode_predicted_peak_bytes=dec_pred,
+        decode_measured_peak_bytes=dec_peak,
+        decode_peak_ratio=dec_peak / dec_pred,
+        decode_counted_flops=recs["decode"]["counted_flops"],
+        launches={k: counts.get(k, 0) for k in want}, gpu=smi)
+    say("dryrun", f"{cfg.name} on meta in {dry_s:.1f} s, mesh (1, 1): "
+        f"collectives 0 in the train ({DRYRUN_TRAIN[0]} x {DRYRUN_TRAIN[1]})"
+        f" and decode ({B} x {S}) cells; counted {flops} FLOP a training "
+        f"step (model 6ND {recs['train']['model_flops']:.6g}, K10 "
+        f"{recs['train']['attention_flops']}), arguments "
+        f"{recs['train']['argument_bytes']}")
+    say("dryrun", f"training step on the card: peak {peak} B measured "
+        f"against {pred} B predicted, ratio {ratio:.4f} (bound {MEM_RATIO});"
+        f" decode step {dec_peak} B against {dec_pred} B, ratio "
+        f"{dec_peak / dec_pred:.4f} (not gated); K10 launches {stats['launches']}")
+    say("dryrun", f"step {ms:.2f} ms (median of 3 after a warm-up, host "
+        f"clock to a sync); bound {bound['float32']:.3f} ms at 67 TFLOP/s "
+        f"float32 (share {bound['float32'] / ms:.4f}), "
+        f"{bound['bfloat16']:.4f} ms at 989 TFLOP/s bf16 (share "
+        f"{bound['bfloat16'] / ms:.5f}); on {smi}")
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--t-end", type=float, default=6.0,
+    ap.add_argument("--t-end", type=float, default=5.0,
                     help="simulated ms of the full-width phases 3, 4, 9, "
                     "18 and 22")
     ap.add_argument("--out", default=None, help="also write results as JSON")
@@ -3696,6 +3850,7 @@ def main(argv=None):
     launches.update(train_launches)
     train_vs_cpu = timed("29 train-card-vs-cpu", phase_train_card_vs_cpu,
                          dev, smi)
+    dry = timed("32 dryrun", phase_dryrun, dev, smi)
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -3736,7 +3891,7 @@ def main(argv=None):
              "flash_backward": {f"{n} {d}": r for (n, d), r in
                                 bwd_rows.items()},
              "train": train_stats,
-             "train_card_vs_cpu": train_vs_cpu},
+             "train_card_vs_cpu": train_vs_cpu, "dryrun": dry},
             indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ numerics and the scheduler's horizon run in hand-written kernels
 plain PyTorch versions, which is what the parity tests use.
 
 Every entry point takes ``device=``.  The default is ``"cuda"``, and it
-raises when no card is present rather than running on the CPU.
+raises when no card is present rather than running on the CPU.  The LM
+path also takes ``"meta"``, the dry run's device (``launch/dryrun.py``):
+shapes and dtypes only, nothing allocated or computed.
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """``torch.device`` for an entry point; CUDA must really be there."""
+    """``torch.device`` for an entry point; CUDA must really be there.
+    ``"meta"`` is the caller's explicit choice, never a fallback."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={device!r} requested but CUDA is not available; "
             "pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -13,7 +13,9 @@ caller's channel tag (``exchange_notify``, ``exchange_parcel``,
 ``exchange_counts``, ``exchange_parcel_c<cap>``; ``other`` for telemetry
 and the end-of-run gathers).  The counters take the place of the JAX
 package's per-channel HLO attribution
-(``repro.launch.hlo_analysis.collective_channel_bytes``).
+(``repro.launch.hlo_analysis.collective_channel_bytes``); the dry run
+reckons the same bytes of one round without running it
+(``launch/comm_analysis.py::paper_round_bytes``).
 
 ``launch(world, fn, *args, backend=..., device=...)`` spawns ``world``
 ranks, runs ``fn(group, *args)`` on each and returns rank 0's result; a

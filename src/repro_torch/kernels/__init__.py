@@ -3,7 +3,11 @@
 One subpackage per kernel family, mirroring ``repro.kernels``:
   <name>.py  - the CUDA wrapper (checks, launch through ctypes, count)
   ops.py     - dispatch: plain version for CPU tensors, the kernel for
-               CUDA tensors (or raise) -- never a silent fallback
+               CUDA tensors (or raise) -- never a silent fallback; the
+               device picks the branch, as ``kernels.use_interpret``
+               picks the Pallas mode in JAX (attention also takes
+               ``meta`` tensors, the dry run's: empty outputs of the
+               kernels' shapes, their operations counted by formula)
   ref.py     - the plain PyTorch version
 
 Kernels (sources in ``repro_torch/csrc``, built by ``kernels/build.py``):

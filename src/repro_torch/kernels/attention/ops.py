@@ -11,15 +11,89 @@ call goes through ``FlashAttentionFn``: the same forward, whose backward
 is K10's backward kernels on the card (``flash_backward.py``) and their
 plain version on the CPU.  Calls that record nothing -- every serving
 call -- take the plain dispatch, and launch exactly what they did before.
+
+``meta`` tensors (the dry run's, ``launch/dryrun.py``: the caller's
+explicit choice, never a fallback) get empty outputs of the kernels'
+shapes, layouts and dtypes -- no ``[B, H, Sq, Skv]`` scores, which K10
+never allocates -- and, inside :func:`count_meta_flops`, add K10's
+products by formula: those the plain version computes, 2 B H Sq Skv D
+each, two in the forward (``ref.py``'s scores and p v) and five in the
+backward (the scores again, dP, dq, dk, dv).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from repro_torch.kernels.attention import ref
-from repro_torch.kernels.attention.flash import flash_attention_cuda
-from repro_torch.kernels.attention.flash_backward import \
-    flash_attention_bwd_cuda
+from repro_torch.kernels.attention.flash import (HEAD_DIMS,
+                                                 flash_attention_cuda,
+                                                 variant)
+from repro_torch.kernels.attention.flash_backward import (
+    _TILE, flash_attention_bwd_cuda)
+
+FWD_PRODUCTS, BWD_PRODUCTS = 2, 5        # 2 B H Sq Skv D operations each
+_counters = threading.local()
+
+
+class count_meta_flops:
+    """``with count_meta_flops() as c``: ``c["forward"]`` and
+    ``c["backward"]`` sum K10's operations on ``meta`` tensors inside the
+    block."""
+
+    def __enter__(self) -> dict:
+        self.counts = {"forward": 0, "backward": 0}
+        self.prev = getattr(_counters, "active", ())
+        _counters.active = self.prev + (self.counts,)
+        return self.counts
+
+    def __exit__(self, *exc):
+        _counters.active = self.prev
+
+
+def _count(q, k, products, key):
+    B, H, Sq, D = q.shape
+    n = products * 2 * B * H * Sq * k.shape[2] * D
+    for c in getattr(_counters, "active", ()):
+        c[key] += n
+
+
+def _meta_out(B, S, H, D, dtype):
+    """An empty output in the kernels' layout: ``[B, S, H, D]`` storage
+    seen as ``[B, H, S, D]``."""
+    return torch.empty((B, S, H, D), dtype=dtype,
+                       device="meta").transpose(1, 2)
+
+
+def _forward_meta(q, k, v, causal, offset, kv_len, out_dtype):
+    ref.geometry(q, k, causal, offset, kv_len)
+    B, H, Sq, D = q.shape
+    variant(q.dtype, Sq, H // k.shape[1], D)     # a kernel takes the call
+    _count(q, k, FWD_PRODUCTS, "forward")
+    return _meta_out(B, Sq, H, D, out_dtype or q.dtype)
+
+
+def _backward_meta(q, k, v, causal):
+    """dq, dk, dv in the kernels' layouts, after the scratch they
+    allocate (row statistics; for bf16 the split dO and the tile flags)."""
+    ref.bwd_geometry(q, k, causal)
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    _count(q, k, BWD_PRODUCTS, "backward")
+    dq, dk, dv = (_meta_out(B, S, h, D, q.dtype)
+                  for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    tiles = -(-Sq // _TILE)
+    scratch = [torch.empty((2, B, H, tiles * _TILE), device="meta")]
+    if q.dtype == torch.bfloat16:
+        scratch += [torch.empty((3, B, H, tiles * _TILE, D), dtype=q.dtype,
+                                device="meta"),
+                    torch.empty((B, H, tiles), dtype=torch.int32,
+                                device="meta")]
+    del scratch
+    return dq, dk, dv
 
 
 def _forward(q, k, v, causal, offset, kv_len, out_dtype):
@@ -29,6 +103,8 @@ def _forward(q, k, v, causal, offset, kv_len, out_dtype):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal, offset, kv_len,
                                        out_dtype)
+    if q.device.type == "meta":
+        return _forward_meta(q, k, v, causal, offset, kv_len, out_dtype)
     raise ValueError(f"no flash-attention kernel for device {q.device}")
 
 
@@ -40,6 +116,8 @@ def flash_attention_bwd(q, k, v, o, do, causal=True):
         return flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    if q.device.type == "meta":
+        return _backward_meta(q, k, v, causal)
     raise ValueError(f"no flash-attention kernel for device {q.device}")
 
 

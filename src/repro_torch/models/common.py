@@ -8,12 +8,12 @@ tensors would return bf16, a different function -- so TF32 must stay off
 for float32 matmuls on the card.  PyTorch's default is off; it is set
 here so that the model's function does not depend on a caller's setting.
 
-The JAX package's model code marks activations with
-``distributed/ctx.py::constrain`` for its sharded dry run; on one card
-those calls are no-ops, and the port's models make none.  Its structural
-``scan``/``unroll_scans`` (the dry run's cost analysis) are not ported
-here (ROADMAP queue 1 item 8); the training loss (``softmax_xent``,
-``chunked_lm_loss``) is.
+The models mark activations with ``distributed/ctx.py::constrain`` at
+the JAX version's places, for the dry run (``launch/dryrun.py``).  The
+layer loops are plain Python, so the JAX package's structural ``scan``
+and ``unroll_scans`` (which make XLA's cost analysis see every layer)
+have no counterpart: the dry run counts the operations torch dispatches
+on the ``meta`` device, where :func:`normal` draws nothing.
 """
 from __future__ import annotations
 
@@ -36,7 +36,10 @@ def normal(gen, shape, scale, dtype, device="cpu"):
     """Normal(0, scale) values of ``shape``, drawn in float32 on ``gen``'s
     own device -- a CPU ``torch.Generator`` gives the same values on every
     device, a CUDA one draws a full-width model's billions of weights on
-    the card -- then moved to ``device`` in ``dtype``."""
+    the card -- then moved to ``device`` in ``dtype``.  On ``meta`` an
+    empty tensor of the shape, with nothing drawn from ``gen``."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
     return w.to(dtype=dtype, device=device)

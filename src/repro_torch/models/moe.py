@@ -6,9 +6,12 @@ qwen3-moe-30b-a3b (128 experts, top-8).  Expert weights are stacked
 ``[E, ...]``.  Tokens are split into G groups, each routed with its own
 capacity ``C``: a token's k experts are sorted by expert id (stable), an
 entry's rank in its expert's run is its slot, and entries ranked past C
-are dropped.  The dispatch buffer is ``[G, E, C, d]``; the JAX package
-shards it G over data and E over model (its ``constrain`` calls are
-no-ops on one card, and the port makes none).
+are dropped.  The dispatch buffer is ``[G, E, C, d]``, sharded G over
+data and E over model: it and the experts' output are marked
+``moe_buf`` (``distributed/ctx.py::constrain``, the MoE all-to-all of
+the dry run's reckoning), as in the JAX version.  Every shape is fixed by
+the config and the token count, none by the routing, so the layer runs
+on the ``meta`` device too.
 
 Where the port must not follow the obvious torch call:
 
@@ -29,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
@@ -129,20 +133,25 @@ def moe_ffn(cfg: ArchConfig, mp, x):
 
     # aux load-balancing loss (Switch-style, over all groups)
     me = r.probs.mean(dim=(0, 1))                              # [E]
-    ce = torch.bincount(r.expert.reshape(-1), minlength=E).to(
-        torch.float32) / (T * k)
+    flat_e = r.expert.reshape(-1)
+    ce = torch.zeros((E,), dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e)).to(torch.float32) / (T * k)
     aux = E * torch.sum(me * ce)
 
-    # dispatch: kept entries into [G, E, C, d]; dropped ones are not written
+    # dispatch: kept entries into [G, E, C, d]; dropped ones go to a dump
+    # row past the end of the flat buffer, which is sliced off
     gi = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
-    gk, ek, sk, tk = (a[r.keep] for a in (gi, r.e_s, r.rank, r.t_s))
-    buf = torch.zeros((G, E, r.cap, d), dtype=x.dtype, device=x.device)
-    buf[gk, ek, sk] = xt[gk, tk]
+    n_slots = G * E * r.cap
+    slot = torch.where(r.keep, (gi * E + r.e_s) * r.cap + r.rank, n_slots)
+    buf = torch.zeros((n_slots + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot.reshape(-1)] = xt[gi, r.t_s].reshape(-1, d)
+    buf = dctx.constrain(buf[:n_slots].view(G, E, r.cap, d), "moe_buf")
 
     cd = cfg.cdtype()
     h = cm.swiglu(_expert_mm(buf, mp["w_gate"], cd),
                   _expert_mm(buf, mp["w_up"], cd))
     y = _expert_mm(h, mp["w_down"], cd)                        # [G, E, C, d]
+    y = dctx.constrain(y, "moe_buf")           # the all-to-all back
 
     # combine: each entry's gated output (0 if dropped), back in token
     # order through the inverse permutation, summed over a token's k

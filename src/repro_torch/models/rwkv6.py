@@ -13,8 +13,8 @@ Prefill runs the recurrence step by step (``common.chunked_time_scan``);
 decode is the same forward at T = 1 on the carried (S, token-shift)
 state.  No TPU kernel is on this path: a step is GEMMs and elementwise
 work.  The state comes back as new tensors; the input state is never
-written.  The JAX version's ``distributed/ctx.py::constrain`` calls are
-no-ops on one card and are not made.
+written.  Each layer's output is marked ``tokens3d`` for the dry run
+(``distributed/ctx.py::constrain``, as in the JAX version).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import common as cm
 
 HEAD_SIZE = 64
@@ -97,7 +98,7 @@ def time_mix(cfg: ArchConfig, lp, x, x_prev, S0):
 
     def step(S, rkvw):
         rt, kt, vt, wt = rkvw                                  # [B, H, hs]
-        kv = kt[..., :, None] * vt[..., None, :]
+        kv = torch.matmul(kt[..., :, None], vt[..., None, :])  # outer
         yt = torch.einsum("bhk,bhkv->bhv", rt, S + u * kv)
         return S * wt[..., None] + kv, yt
 
@@ -148,6 +149,7 @@ def forward(cfg: ArchConfig, params, tokens, state=None):
     new = {k: [] for k in state}
     for i, lp in enumerate(params["layers"]):
         x, st = layer_forward(cfg, lp, x, {k: v[i] for k, v in state.items()})
+        x = dctx.constrain(x, "tokens3d")
         for k in new:
             new[k].append(st[k])
     x = cm.rms_norm(x, params["ln_f"])

@@ -9,6 +9,10 @@ w_gate, w_up, w_down`` and ``bq, bk, bv`` with ``qkv_bias``) -- the JAX
 package stacks them ``[L, ...]`` and scans; here the scan is a Python
 loop.  Attention is flash attention (K10) on the card.
 
+``forward`` marks the embedded tokens ``tokens3d`` and each layer's
+output ``residual`` for the dry run (``distributed/ctx.py::constrain``,
+at the JAX version's places; outside a sharding context a no-op).
+
 The training forward writes nothing in place (``remat`` recomputes a
 layer from its inputs); ``decode_step`` writes each layer's new k/v into
 the cache at ``t_pos`` in place (the JAX version returns an updated
@@ -25,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 
@@ -138,7 +143,7 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
     activations, K10 included, instead of keeping them.  ``attn_chunk``
     is ignored (``attention.chunked_causal_attention``)."""
     del attn_chunk
-    x = embed_tokens(cfg, params, tokens)
+    x = dctx.constrain(embed_tokens(cfg, params, tokens), "tokens3d")
     if cfg.n_patches and patch_embeds is not None:
         pe = cm.mm(patch_embeds.to(torch.float32), params["patch_proj"],
                    cfg.cdtype())
@@ -156,6 +161,7 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None,
             x, (k, v), a = checkpoint(layer, lp, x, use_reentrant=False)
         else:
             x, (k, v), a = layer(lp, x)
+        x = dctx.constrain(x, "residual")
         if a is not None:
             aux = aux + a
         if return_cache:

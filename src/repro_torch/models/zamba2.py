@@ -19,8 +19,8 @@ applications).  Its attention is K10; zamba2-7b's head size is 3584 / 32
 = 112.  ``decode_step`` returns new conv and h tensors and writes the
 shared caches ``k``/``v`` ``[n_apps, B, S, Hkv, hd]`` at ``t_pos`` in
 place, as the transformer's decode does (the JAX version returns updated
-copies).  The JAX version's ``distributed/ctx.py::constrain`` calls are
-no-ops on one card and are not made.
+copies).  ``forward`` marks each mamba layer's output ``tokens3d`` for
+the dry run (``distributed/ctx.py::constrain``, as in the JAX version).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import ctx as dctx
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
@@ -109,7 +110,8 @@ def mamba_forward(cfg: ArchConfig, lp, x, conv_state, h0):
 
     def step(h, inp):
         xt, Bt, Ct, at, dtt = inp
-        upd = Bt[:, None, :, None] * (xt * dtt[..., None])[:, :, None, :]
+        upd = torch.matmul(Bt[:, None, :, None],              # outer
+                           (xt * dtt[..., None])[:, :, None, :])
         h = h * at[..., None, None] + upd                    # [B, H, n, hd]
         return h, torch.einsum("bn,bhnp->bhp", Ct, h)
 
@@ -172,6 +174,7 @@ def forward(cfg: ArchConfig, params, tokens, state=None):
         for i in range(lo, hi):
             x, conv, h = mamba_forward(cfg, params["layers"][i], x,
                                        state["conv"][i], state["h"][i])
+            x = dctx.constrain(x, "tokens3d")
             convs.append(conv)
             hs.append(h)
         if app is not None:

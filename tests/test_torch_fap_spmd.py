@@ -19,11 +19,18 @@ paper-faithful global round ``optimized=False``, 6 ms):
   counters show ragged parcels at or below the static cap's, parcel bytes
   set by the cap and not by N, and a placed block net's notify bytes
   below a uniform net's by the frontier ratio (these stand in for the
-  JAX tests' compiled-HLO byte attribution).
+  JAX tests' compiled-HLO byte attribution);
+* the dry run's paper cell (``launch/dryrun.py``) -- each rank's argument
+  bytes at ``PaperNeuroSpec(n_neurons=64, k_in=4, ev_cap=8)`` over four
+  shards equal JAX's shard shapes of ``build_fap_round``'s arguments on a
+  (2, 2) mesh, and the bytes ``launch/comm_analysis.py`` reckons per round
+  and channel equal ``Group.counters()`` of one real round on the four
+  ranks, for the allgather and sparse transports and the global round.
 
-JAX runs in four subprocesses (the host device count locks at its first
-initialisation; the 6 ms runs, the 3 ms runs, the global round's 6 and 3
-ms runs and the round records), in parallel with the port's ranks.
+JAX runs in three subprocesses (the host device count locks at its first
+initialisation): the 6 ms runs; the 3 ms runs with the global round's 6
+and 3 ms runs and the paper cell's shard shapes; the round records.  They
+run in parallel with the port's ranks.
 """
 import os
 import pickle
@@ -65,8 +72,14 @@ CONFIGS = {
     "placed": (dict(transport="sparse", parcel_cap=8, placement="greedy"),
                True),
 }
-# the global round runs in a JAX subprocess of its own
+# the global round runs in the 3 ms subprocess, at 6 and 3 ms
 GLOBAL = {"global": (dict(optimized=False), False)}
+# the paper cell's geometry for the argument bytes, and the transports of
+# the one-round byte reckoning
+PAPER = dict(n_neurons=64, k_in=4, ev_cap=8)
+ROUND_BYTES = {"allgather": dict(transport="allgather"),
+               "sparse": dict(transport="sparse", parcel_cap=8),
+               "global": dict(optimized=False)}
 # port-only runs at T_END: the global round and allgather on the wheel
 WHEEL = {"global_wheel": dict(optimized=False, queue="wheel"),
          "allgather_wheel": dict(transport="allgather", queue="wheel")}
@@ -94,7 +107,7 @@ from repro.distributed.fap_spmd import (PaperNeuroSpec, build_fap_round,
 from repro.launch.mesh import make_mesh_compat
 
 mode, out_path = sys.argv[1], sys.argv[2]
-configs = pickle.loads(bytes.fromhex(sys.argv[3]))
+configs, global_cfg, paper = pickle.loads(bytes.fromhex(sys.argv[3]))
 mesh = make_mesh_compat((2, 2), ("data", "model"))
 model = CellModel(morphology.soma_only())
 n = 32
@@ -113,13 +126,14 @@ def knobs(kw):
     return kw
 
 
-t_ends = {"t6": (6.0,), "t3": (3.0,), "global": (6.0, 3.0),
-          "rounds": ()}[mode]
-for t_end, (name, (kw, block)) in [(t, c) for t in t_ends
-                                   for c in configs.items()]:
+runs = {"t6": [(6.0, n, c) for n, c in configs.items()],
+        "t3": [(3.0, n, c) for n, c in configs.items()] +
+              [(t, n, c) for t in (6.0, 3.0) for n, c in global_cfg.items()],
+        "rounds": []}[mode]
+for t_end, name, (kw, block) in runs:
     res, rounds = run_fap_spmd(model, nets[block], iinj, t_end, mesh,
                                max_rounds=60, **knobs(kw))
-    key = f"{name}/{t_end}" if mode == "global" else name
+    key = f"{name}/{t_end}" if name in global_cfg else name
     out[key] = {"times": np.asarray(res.rec.times),
                  "count": np.asarray(res.rec.count),
                  "n_steps": int(res.n_steps), "n_events": int(res.n_events),
@@ -127,6 +141,22 @@ for t_end, (name, (kw, block)) in [(t, c) for t in t_ends
                  "failed": bool(res.failed), "rounds": rounds,
                  "parcel_bytes": int(res.comm["parcel_bytes"]),
                  "solver": {k: int(v) for k, v in res.solver.items()}}
+
+if mode == "t3":
+    # one device's bytes of each argument of the paper cell's round
+    from jax.sharding import NamedSharding
+    for optimized in (False, True):
+        _, ex, sh = build_fap_round(model, PaperNeuroSpec(**paper), mesh,
+                                    optimized=optimized)
+        names = ["sts." + f for f in ex[0]._fields] + [
+            "eq_t", "eq_a", "eq_g", "pre", "post", "delay", "w_ampa",
+            "w_gaba", "iinj"]
+        leaves = list(ex[0]) + list(ex[1:])
+        shards = list(sh[0]) + list(sh[1:])
+        assert len(leaves) == len(names) == len(shards)
+        out[f"paper/{optimized}"] = {
+            nm: int(np.prod(s.shard_shape(x.shape))) * np.dtype(
+                x.dtype).itemsize for nm, x, s in zip(names, leaves, shards)}
 
 if mode == "rounds":
     # every round of a 6 ms run, inputs and outputs, for the port to rerun
@@ -232,7 +262,37 @@ def _port_ranks(group):
     out["bytes/block_placed"] = run(_net(256, True, seed=5, p_in=0.98),
                                     _iinj(256), 0.5, transport="sparse",
                                     parcel_cap=8, placement="greedy")
+    out["round_bytes"] = {k: _one_round_counters(group, model, kw)
+                          for k, kw in ROUND_BYTES.items()}
     return out
+
+
+def _one_round_counters(group, model, kw):
+    """``Group.counters()`` of one call of the round from the initial
+    state (the first round of a run, without the run loop's own
+    collectives)."""
+    from repro_torch import sched
+    from repro_torch.core import bdf
+    from repro_torch.core import exec_common as xc
+    from repro_torch.distributed.fap_spmd import (PaperNeuroSpec,
+                                                  build_fap_round, shard_rows)
+    net, dev = _net(), group.device
+    kw = _knobs(kw)
+    optimized = kw.pop("optimized", True)
+    spec = PaperNeuroSpec(n_neurons=N, k_in=K_IN, ev_cap=32, t_end=T_END)
+    fn = build_fap_round(model, spec, group, optimized=optimized, net=net,
+                         **kw)
+    dnet = xc.to_device(net, dev)
+    iinj = shard_rows(xc.per_neuron(_iinj(), N, dev), group)
+    static = tuple(shard_rows(x, group) for x in (
+        dnet.pre, dnet.delay, dnet.w_ampa, dnet.w_gaba)) if optimized \
+        else tuple(dnet)
+    sts = bdf.reinit(model, 0.0, xc.batch_init(model, N // group.world),
+                     iinj, bdf.BDFOptions())
+    eq = sched.get_queue_ops("dense", ev_cap=32).make(N // group.world, dev)
+    group.reset_counters()
+    fn(sts, eq.t, eq.w_ampa, eq.w_gaba, *static, iinj)
+    return group.counters()
 
 
 def _port_from_jax_rounds(group, path):
@@ -287,9 +347,9 @@ def jax_procs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     env.pop("XLA_FLAGS", None)
     procs = {}
-    for mode in ("t6", "t3", "global", "rounds"):
+    cfg = pickle.dumps((CONFIGS, GLOBAL, PAPER)).hex()
+    for mode in ("t6", "t3", "rounds"):
         path = str(d / f"{mode}.pkl")
-        cfg = pickle.dumps(GLOBAL if mode == "global" else CONFIGS).hex()
         procs[mode] = (subprocess.Popen(
             [sys.executable, "-c", JAX_SCRIPT, mode, path, cfg], env=env,
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -313,16 +373,11 @@ def port(jax_procs):
     return grp.launch(4, _port_ranks, backend="gloo", device="cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_global(jax_procs, port):
-    return _jax_result(jax_procs, "global")
-
-
 def _jax_at(procs, mode, t_end, name):
-    """JAX's run of ``name`` at ``t_end``: the global round's from its own
-    subprocess, the others' from the subprocess of ``mode``."""
+    """JAX's run of ``name`` at ``t_end``: the global round's from the 3
+    ms subprocess, the others' from the subprocess of ``mode``."""
     if name in GLOBAL:
-        return _jax_result(procs, "global")[f"{name}/{t_end}"]
+        return _jax_result(procs, "t3")[f"{name}/{t_end}"]
     return _jax_result(procs, mode)[name]
 
 
@@ -575,3 +630,36 @@ def test_unported_and_bad_knobs_raise():
         with pytest.raises(ValueError):
             build_fap_round(model, spec, g, optimized=True, **kw)
 
+
+
+@pytest.mark.parametrize("optimized", [False, True])
+def test_paper_cell_argument_bytes_match_jax(jax_procs, port, optimized):
+    """The dry run's paper cell: one rank's bytes of each array JAX's
+    ``build_fap_round`` takes, sharded over every axis of a (2, 2) mesh
+    (JAX) or four shards (the port's reckoning)."""
+    from repro_torch.distributed.fap_spmd import PaperNeuroSpec
+    from repro_torch.launch import dryrun
+    want = _jax_result(jax_procs, "t3")[f"paper/{optimized}"]
+    model = CellModel(morphology.soma_only(), device="cpu")
+    spec = PaperNeuroSpec(**PAPER)
+    got = {k: int(np.prod(s)) // 4 * d.itemsize for k, (s, d) in
+           dryrun.paper_round_arguments(model, spec, 4).items()}
+    assert got == want
+    assert dryrun.paper_argument_bytes(model, spec, 4) == sum(want.values())
+
+
+@pytest.mark.parametrize("name", list(ROUND_BYTES))
+def test_reckoned_round_bytes_equal_group_counters(port, name):
+    """``comm_analysis.paper_round_bytes`` against the bytes ``Group``
+    counted in one real round on four CPU ranks, channel by channel."""
+    from repro_torch.distributed.sharding import shard_frontier
+    from repro_torch.launch import comm_analysis as ca
+    kw = ROUND_BYTES[name]
+    net = _net()
+    F = shard_frontier(np.asarray(net.pre), np.asarray(net.post), N,
+                       4).frontier_size
+    want = ca.paper_round_bytes(N, 4, kw.get("optimized", True),
+                                kw.get("transport", "allgather"),
+                                kw.get("parcel_cap", 64), F)
+    got = {k: v["bytes"] for k, v in port["round_bytes"][name].items()}
+    assert got == want

@@ -384,9 +384,16 @@ def test_flash_attention_wrapper_refuses_what_it_cannot_take():
     q = torch.zeros((1, 2, 4, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, q, q)
+    # meta tensors are the dry run's: what a kernel would take gets an
+    # empty output in the kernels' layout, the rest is refused as on a card
     m = torch.zeros((1, 2, 4, 16), device="meta")
-    with pytest.raises(ValueError):
-        attn_ops.flash_attention(m, m, m)
+    out = attn_ops.flash_attention(m, m, m)
+    assert out.device.type == "meta" and out.shape == m.shape
+    m96 = torch.zeros((1, 2, 4, 96), device="meta")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        attn_ops.flash_attention(m96, m96, m96)
+    with pytest.raises(ValueError, match="offset"):
+        attn_ops.flash_attention(m, m, m, offset=-1)
 
 
 def test_other_devices_are_refused():
