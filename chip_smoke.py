@@ -10,9 +10,15 @@ Phases, each reported on its own lines:
      on the card, at the main path's shapes (K1/K2/K4 at N=16384 with C=13
      and C=1, K5 at K=16; K1, K2 and K5 bitwise, K3 == K2(K1); K1/K2 also
      at C=29 and at N=16421, K5 at N 1, 255, 16385 x K 1, 5, 16, 33 with
-     clocks at t_end, +-inf and NaN, untimed), with each kernel's time per call
-     (CUDA events around each of 25 calls, median: the wrapper's host work
-     included),
+     clocks at t_end, +-inf and NaN, untimed); K1, K2 and K3 on trees past
+     their tiles, the warp frame's cases -- branched_tree at depths 7, 8,
+     9, 10 and 12 (C = 509 ... 16381), random trees of C = 283 and 786 and
+     a 4000-compartment chain -- at N = 4096 and 4133 in the main path's
+     layouts: K1, K2 and K3 bitwise, K3 == K2(K1), each launch in the frame
+     ``hines.plan`` names, the three timed at C = 1021, N = 4096 (the
+     ``*_warp`` rows of the ``kernels`` line); with each kernel's time per
+     call (CUDA events around each of 25 calls, median: the wrapper's host
+     work included),
      its device time (events around the replay of a CUDA graph of 50
      launches; phases 5, 8, 13 and 15 time alike) and its bound, and the
      launch floor (the device time of a one-element in-place ``add_``);
@@ -128,7 +134,7 @@ Phases, each reported on its own lines:
      final ``zn[:, 0]``), launching K1, K2, K4 and K5; checkpoint bytes, ms
      per save and per restore;
  23. ``SimService`` at full width: 4 lanes of phase 3's network (65,536
-     neurons a round), 8 tenants of 3 ms with currents in [i_active,
+     neurons a round), 8 tenants of 2.6 ms with currents in [i_active,
      i_burst] of the branched cell, QoS class 0 capped at N/4, the fused
      horizon and tenant 1 poisoned at its round 4: every request
      completes, at least one quarantine, tenant 1 and tenant 0 bitwise
@@ -141,7 +147,7 @@ Phases, each reported on its own lines:
      two compact runners (compact batch at N/2 and fan-out at spike cap 4,
      wheel; the incremental scatter horizon, and the fused one), the rows
      forms of K6 and K7 launched; then the SPMD round at
-     N=256, 4 ms on four card ranks (sparse, compact, incremental
+     N=256, 3 ms on four card ranks (sparse, compact, incremental
      horizon) killed and resumed on four ranks and on two (the elastic
      reseed), bitwise the uninterrupted run;
  25. the other LM families at full width: whisper-base, rwkv6-7b,
@@ -209,6 +215,15 @@ Phases, each reported on its own lines:
      bound from ``counted_flops`` at 67 TFLOP/s (float32, what
      ``common.mm`` runs) and 989 TFLOP/s (bf16) and the measured ms's
      share of each, printed beside the card's name and power limit;
+ 33. the detailed cell: phase 3's dense 2c path (``horizon_impl="fused"``,
+     ``make_network(4096, 16, seed 11)``) on ``branched_tree(depth=8,
+     seg_per_branch=2)``, C = 1021 (4.18 M compartments), the Fig. 10
+     regime mix scaled by its threshold (``I_THRESH_DETAILED``), 3 ms:
+     nothing failed or dropped, spikes and events, K1, K2, K4, K5 and the
+     warp frame's K1 and K2 launched; rounds, ms per round, peak memory,
+     launches; then card against CPU, bitwise, at N = 16, 1 ms, 8 nA: 2c on
+     C = 509 (K1's tile, K2's warp frame) and C = 1021, 2a on C = 1021
+     (K3's warp frame);
  21. with ``--profile ROUNDS`` only: a ``torch.profiler`` trace of that many
      full-width rounds of the dense and of the active path, and of that
      many full-width decode steps of the serve path and of phase 25's
@@ -218,7 +233,8 @@ Phases, each reported on its own lines:
 Phases 3, 4, 9, 18 and 22 run 5 ms (``--t-end``; phase 4's auto-cap
 probe runs min(t_end, 5) ms, so its caps, and phase 31's, are those of
 a 6 ms run), the SPMD phases 12 and 30 and the speculative phase 19 4
-ms.  Each phase's wall is
+ms, the services of phases 23 and 31 2.6 ms, phase 24's SPMD resumes 3
+ms and the detailed cell of phase 33 3 ms.  Each phase's wall is
 printed as it ends (``[wall]``) and all of them on the ``[done]`` line.
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
@@ -259,6 +275,10 @@ REPLACES = {
     "hines_factor": "src/repro/kernels/hines/hines.py:163",
     "hines_solve_factored": "src/repro/kernels/hines/hines.py:188",
     "hines_solve": "src/repro/kernels/hines/hines.py:73",
+    # the same three Pallas kernels at C above the tiles: the warp frame
+    "hines_factor_warp": "src/repro/kernels/hines/hines.py:163",
+    "hines_solve_factored_warp": "src/repro/kernels/hines/hines.py:188",
+    "hines_solve_warp": "src/repro/kernels/hines/hines.py:73",
     "hh_rhs": "src/repro/kernels/hh_rhs/hh_rhs.py:46",
     "horizon_score": "src/repro/kernels/event_wheel/event_wheel.py:38",
     "compact_ids": "src/repro/kernels/event_wheel/event_wheel.py:115",
@@ -280,6 +300,9 @@ REPLACES = {
 SOURCE = {"hines_factor": f"{SRC}/hines.cu",
           "hines_solve_factored": f"{SRC}/hines.cu",
           "hines_solve": f"{SRC}/hines.cu",
+          "hines_factor_warp": f"{SRC}/hines.cu",
+          "hines_solve_factored_warp": f"{SRC}/hines.cu",
+          "hines_solve_warp": f"{SRC}/hines.cu",
           "hh_rhs": f"{SRC}/hh_rhs.cu", "horizon_score": f"{SRC}/horizon.cu",
           "compact_ids": f"{SRC}/compact.cu",
           "compact_gather": f"{SRC}/compact.cu",
@@ -297,7 +320,7 @@ K10_KERNELS = ("flash_attention_f32_decode", "flash_attention_f32_prefill",
 ROW_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms")
 OUR_KERNELS = ("hines_factor_kernel", "hines_solve_factored_kernel",
-               "hines_solve_kernel",
+               "hines_solve_kernel", "hines_warp_kernel",
                "hh_rhs_kernel", "horizon_kernel", "compact_ids_kernel",
                "compact_gather_kernel", "compact_ids_rows_kernel",
                "compact_gather_rows_kernel", "segment_rank_kernel",
@@ -310,6 +333,22 @@ DENSE_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
               "horizon_score")
 ACTIVE_PATH = DENSE_PATH + ("compact_ids", "compact_gather", "segment_rank")
 BASELINE_PATH = ("hines_solve",)
+HINES = ("hines_factor", "hines_solve_factored", "hines_solve")
+# The detailed cell (phase 33): branched_tree(depth=8, seg_per_branch=2),
+# C = 1021, past every Hines tile, on phase 3's network at N = 4096, the
+# Fig. 10 regime mix scaled by its own threshold current (``python3
+# scripts/calibrate_cell.py --depth 8``: threshold_current's bisection,
+# the same on the card and the CPU; measured on an NVIDIA H100 80GB HBM3,
+# 700 W).  Its first spikes come at about 1.35 ms (burst), 2.3 ms (fast)
+# and 4.4 ms (moderate) in the same script's 1a traces; the mix at N =
+# 4096 holds no burst neuron and 132 fast ones, so the run goes to 3 ms,
+# past the fast neurons' first spikes and their first deliveries.
+DETAILED_DEPTH, DETAILED_N, DETAILED_T_END = 8, 4096, 3.0
+I_THRESH_DETAILED = 0.356201171875
+DETAILED_PATH = DENSE_PATH + ("hines_factor_warp",
+                              "hines_solve_factored_warp")
+DETAILED_DEPTHS = (7, 8, 9, 10, 12)     # phase 2's branched trees
+WARP_N = 4096                           # ... at N = 4096 and 4096 + 37
 SPEC_PATH = ("hines_factor", "hines_solve_factored", "hh_rhs",
              "compact_gather", "segment_rank")
 ACTIVE = dict(batch="compact", batch_cap="auto", fanout="compact",
@@ -362,14 +401,13 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def regime_currents(n, seed=0):
+def regime_currents(n, seed=0, i_thresh=I_THRESH_BRANCHED):
     from repro_torch.core.network import regime_current
     names = list(PCTS)
     p = np.array([PCTS[k] for k in names])
     assign = np.random.default_rng(seed).choice(len(names), size=n,
                                                 p=p / p.sum())
-    return np.array([regime_current(names[a], I_THRESH_BRANCHED)
-                     for a in assign])
+    return np.array([regime_current(names[a], i_thresh) for a in assign])
 
 
 def cuda_ms(fn, reps=25, warmup=3):
@@ -564,6 +602,110 @@ def _hines_case(morph, dev, N):
     return model, d, fac, b
 
 
+def _random_tree(C, seed):
+    """A Hines-ordered tree: parent[i] drawn below i, more or less bushy."""
+    rng = np.random.default_rng(seed)
+    span = rng.integers(1, C) if C > 1 else 1
+    return [-1] + [int(rng.integers(max(0, i - span), i))
+                   for i in range(1, C)]
+
+
+def _large_trees():
+    """Trees whose K2 tile does not fit (phase 2's warp-frame cases, name
+    -> (parent, g_axial or None)): the detailed cells branched_tree at
+    depths 7, 8, 9, 10 and 12 (C = 509 ... 16381, their own g_axial),
+    random trees just past K2's and K1's tiles (C = 283, 786) and a
+    4000-compartment chain (depth C - 1)."""
+    from repro_torch.core.morphology import ball_and_stick, branched_tree
+    out = {f"branched_{k}": branched_tree(depth=k) for k in DETAILED_DEPTHS}
+    out["chain_4000"] = ball_and_stick(n_dend=4000)
+    trees = {k: (m.parent, m.g_axial) for k, m in out.items()}
+    trees.update({f"random_{C}": (_random_tree(C, C), None)
+                  for C in (283, 786)})
+    return trees
+
+
+def _large_tree_kernels(dev):
+    """K1, K2 and K3 on the trees of ``_large_trees`` at N = 4096 and a
+    ragged N, in the main path's layouts (d and b as transposed [N, C]
+    rows, d_elim as the slice of [N, 5 C + 2] factor rows): K1, K2 and K3
+    bitwise their plain versions, K3 == K2(K1); each kernel's frame from
+    ``hines.plan`` and its warp-frame launches.  The detailed cell of the
+    slice's main path (C = 1021, N = 4096) is timed: the warp frame's rows
+    of the ``kernels`` line."""
+    from repro_torch.core.hines import hines_assemble
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hines import hines as h_cuda
+    from repro_torch.kernels.hines import ops as h_ops
+    from repro_torch.kernels.hines import ref as h_ref
+    rows = {}
+    f64 = dict(dtype=torch.float64, device=dev)
+    for name, (parent, gax) in _large_trees().items():
+        C = len(parent)
+        gen = torch.Generator(device=dev).manual_seed(C)
+        par = torch.tensor(parent, dtype=torch.int32, device=dev)
+        gax = torch.rand(C, generator=gen, **f64) * 1.9 + 0.1 \
+            if gax is None else torch.as_tensor(gax, **f64)
+        for n in (WARP_N, WARP_N + 37):
+            d = hines_assemble(parent, gax, torch.rand((n, C), generator=gen,
+                                                       **f64) + 0.5)
+            b = torch.randn((n, C), generator=gen, **f64)
+            fac = torch.full((n, 5 * C + 2), float("nan"), **f64)
+            dT, bT = d.T, b.T
+            build.reset_launches()
+            de = h_ops.hines_factor(par, gax, dT)
+            err = {"hines_factor": check_close(
+                f"hines_factor {name} C={C} N={n}", de,
+                h_ref.hines_factor_ref(par, gax, dT), exact=True)}
+            fac[:, :C] = de.T
+            deT = fac[:, :C].T
+            x = h_ops.hines_solve_factored(par, gax, deT, bT)
+            err["hines_solve_factored"] = check_close(
+                f"hines_solve_factored {name} C={C} N={n}", x,
+                h_ref.hines_solve_factored_ref(par, gax, deT, bT),
+                exact=True)
+            x3 = h_ops.hines_solve(par, gax, dT, bT)
+            check_close(f"hines_solve == K2(K1) {name} C={C} N={n}", x3, x,
+                        exact=True)
+            n_warp = build.launches()
+            err["hines_solve"] = check_close(
+                f"hines_solve {name} C={C} N={n}", x3,
+                h_ref.hines_solve_ref(par, gax, dT, bT), exact=True)
+            plans = {k: h_cuda.plan(C, k) for k in HINES}
+            for k, pl in plans.items():
+                if n_warp[f"{k}_warp"] != (pl.frame == "warp"):
+                    raise AssertionError(f"{k} {name}: {n_warp} against "
+                                         f"its plan {pl}")
+            if name != "branched_8" or n != WARP_N:
+                continue
+            ne, words = n * C, 4 * h_cuda.schedule(par)[0].numel()
+            rows = {
+                "hines_factor_warp": kernel_row(
+                    err["hines_factor"], lambda: h_ops.hines_factor(par, gax, dT),
+                    lambda: h_ref.hines_factor_ref(par, gax, dT),
+                    16 * ne + 12 * C + words, 3 * (C - 1) * n),
+                "hines_solve_factored_warp": kernel_row(
+                    err["hines_solve_factored"], lambda: h_ops.hines_solve_factored(par, gax, deT,
+                                                            bT),
+                    lambda: h_ref.hines_solve_factored_ref(par, gax, deT,
+                                                           bT),
+                    24 * ne + 12 * C + words, (6 * (C - 1) + 1) * n),
+                "hines_solve_warp": kernel_row(
+                    err["hines_solve"], lambda: h_ops.hines_solve(par, gax, dT, bT),
+                    lambda: h_ref.hines_solve_ref(par, gax, dT, bT),
+                    24 * ne + 12 * C + words, (8 * (C - 1) + 1) * n)}
+            for k, row in rows.items():
+                say("kernels", f"{name} C={C} N={n} ({plans[k[:-5]]}): {k} "
+                    f"{fmt_row(row)}; bitwise")
+        say("kernels", f"{name} C={C}: plans "
+            f"{ {k: tuple(v[:2]) for k, v in plans.items()} }; K1, K2, K3 "
+            f"bitwise their plain versions, K3 == K2(K1) at N {WARP_N} and "
+            f"{WARP_N + 37}")
+        del d, b, fac, de, x, x3
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(dev):
     from repro_torch.core.morphology import branched_tree, soma_only
     from repro_torch.core.network import make_network
@@ -611,7 +753,7 @@ def phase_kernels(dev):
                  enumerate(zip(outs, hh_ref.hh_rhs_ref(p.area, v, m, h, nn))))
         if not timed:
             say("kernels", f"C={C} N={n}: hines_factor, hines_solve_factored "
-                f"bitwise (tiles of {h_cuda.tile_neurons(C)} neurons), "
+                f"bitwise ({h_cuda.plan(C)[0]} frame), "
                 f"hines_solve == K2(K1); hh_rhs err {e4:.2e}")
             continue
         ne = n * C
@@ -636,6 +778,7 @@ def phase_kernels(dev):
         if C > 1:
             rows.update(got)
 
+    rows.update(_large_tree_kernels(dev))
     net = make_network(N, k_in=K_IN, seed=NET_SEED)
     pre, dly = ew_ops.by_post_layout(net, dev)
     K = pre.shape[0]
@@ -2310,9 +2453,11 @@ def _sim_runner(dev, n, t_end, **knobs):
     return make_fap_vardt_runner(model, net, 0.0, t_end, device=dev, **kw)
 
 
-def phase_service(dev, main, smi, lanes=4, tenants=8, t_end=3.0):
+def phase_service(dev, main, smi, lanes=4, tenants=8, t_end=2.6):
     """``SimService`` at full width: 4 lanes of N = 16384, 8 tenants, a
-    poisoned tenant; counts zeroed just before the batched service."""
+    poisoned tenant; counts zeroed just before the batched service.  Every
+    tenant's current is at least i_active, whose first spikes come by
+    2.45 ms, so 2.6 ms keeps every tenant spiking."""
     from repro_torch.checkpoint import FaultPlan
     from repro_torch.kernels import build
     from repro_torch.serve import TenantRequest
@@ -2445,7 +2590,7 @@ def _spmd_robust_rank(group, n, t_end, d, world_of_ckpt):
 
 
 def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=4.0, lanes=3, tenants=5,
-                             t_service=3.0, n_spmd=256):
+                             t_service=3.0, n_spmd=256, t_spmd=3.0):
     """Kill/resume and poison rollback at N = 64, card against CPU
     bitwise; a 3-lane, 5-tenant service card against CPU bitwise; the
     SPMD round at N = 256 on four card ranks killed and resumed on four
@@ -2529,16 +2674,16 @@ def phase_robust_card_vs_cpu(dev, smi, n=64, t_end=4.0, lanes=3, tenants=5,
                                  f"({hi} horizon) differ")
         compact[hi] = ca.rounds
     with tempfile.TemporaryDirectory() as d:
-        four = launch(RANKS, _spmd_robust_rank, n_spmd, t_end, d, RANKS,
+        four = launch(RANKS, _spmd_robust_rank, n_spmd, t_spmd, d, RANKS,
                       backend="gloo", device=dev)
-        two = launch(2, _spmd_robust_rank, n_spmd, t_end, d, RANKS,
+        two = launch(2, _spmd_robust_rank, n_spmd, t_spmd, d, RANKS,
                      backend="gloo", device=dev)
     base, res = four["base"], four["resumed"]
     same4 = _same_host(base["ref"], res["ref"]) and \
         base["rounds"] == res["rounds"]
     same2 = _same_host(base["ref"], two["ref"]) and \
         base["rounds"] == two["rounds"]
-    say("robust-card-vs-cpu", f"SPMD N={n_spmd} t_end={t_end} ms sparse, "
+    say("robust-card-vs-cpu", f"SPMD N={n_spmd} t_end={t_spmd} ms sparse, "
         f"compact, incremental horizon on the card: rounds "
         f"{base['rounds']}, spikes {int(base['ref']['count'].sum())}; "
         f"killed on {RANKS} ranks, resumed from round "
@@ -3768,6 +3913,145 @@ def phase_dryrun(dev, smi):
     return stats
 
 
+# --------------------------------------------------------------- phase 33 --
+def _detailed_runner(dev, n, t_end, depth=DETAILED_DEPTH, iinj=None):
+    """Phase 3's runner (``make_network(n, 16, seed 11)``, the fused
+    horizon) on ``branched_tree(depth, seg_per_branch=2)``, by default
+    with the Fig. 10 regime mix scaled by the detailed cell's threshold."""
+    from repro_torch.core.cell import CellModel
+    from repro_torch.core.exec_fap import make_fap_vardt_runner
+    from repro_torch.core.morphology import branched_tree
+    from repro_torch.core.network import make_network
+    model = CellModel(branched_tree(depth=depth, seg_per_branch=2),
+                      device=dev)
+    net = make_network(n, k_in=K_IN, seed=NET_SEED)
+    cur = regime_currents(n, i_thresh=I_THRESH_DETAILED) if iinj is None \
+        else iinj
+    return make_fap_vardt_runner(model, net, cur, t_end,
+                                 horizon_impl="fused", device=dev)
+
+
+def _on_cpu(fn, *a, **kw):
+    """``fn`` on one torch thread: the card-vs-CPU runs' CPU side at
+    C = 1021 takes a few seconds on one thread and many times that on
+    eight, whose synchronisation outweighs rows of a few thousand."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*a, **kw)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def phase_detailed(dev, smi, t_end=DETAILED_T_END, n=DETAILED_N,
+                   n_small=16, t_small=1.0, i_small=8.0):
+    """The 2c dense main path on the detailed cell (C = 1021) at full
+    width, counts zeroed just before; then card against CPU, bitwise, at
+    N = 16 for 1 ms: 2c on C = 509 (K1 on its tile, K2 on the warp frame)
+    and C = 1021 (both on the warp frame), and 2a on C = 1021 (K3 on the
+    warp frame), each at ``i_small`` nA so that every neuron spikes and
+    its events are delivered within the run."""
+    from repro_torch.core.cell import CellModel
+    from repro_torch.core.exec_bsp import run_bsp_fixed
+    from repro_torch.core.morphology import branched_tree
+    from repro_torch.core.network import make_network
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hines import hines as h_cuda
+    run = _detailed_runner(dev, n, t_end)
+    C = branched_tree(depth=DETAILED_DEPTH, seg_per_branch=2).n_comp
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, rounds = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    spikes = int(res.rec.count.sum())
+    per_round = wall / max(rounds, 1) * 1e3
+    plans = {k: tuple(h_cuda.plan(C, k)) for k in HINES}
+    say("detailed", f"branched_tree(depth={DETAILED_DEPTH}, "
+        f"seg_per_branch=2) C={C} N={n} ({n * C} compartments) k_in={K_IN} "
+        f"t_end={t_end} ms horizon_impl=fused, regime currents of "
+        f"threshold {I_THRESH_DETAILED} nA: rounds {rounds}, n_steps "
+        f"{int(res.n_steps)}, n_events {int(res.n_events)}, n_resets "
+        f"{int(res.n_resets)}, spikes {spikes}, dropped "
+        f"{int(res.dropped)}, record overflow {int(res.rec.overflow)}, "
+        f"failed {bool(res.failed)}; plans {plans}")
+    solver = {k: int(v) for k, v in res.solver.items()}
+    say("detailed", f"solver {json.dumps(solver)}")
+    say("detailed", f"wall {wall:.2f} s, {per_round:.1f} ms per round; "
+        f"peak memory {peak / 2**30:.2f} GiB ({peak} B); launches "
+        f"{json.dumps(launches)}; on {smi}")
+    if bool(res.failed):
+        raise AssertionError("detailed cell: an integrator failed")
+    if int(res.dropped) != 0 or int(res.rec.overflow) != 0:
+        raise AssertionError(f"detailed cell dropped {int(res.dropped)} "
+                             f"events, record overflow "
+                             f"{int(res.rec.overflow)}")
+    if spikes <= 0 or int(res.n_events) <= 0:
+        raise AssertionError("detailed cell: no spikes or no events")
+    missing = [k for k in DETAILED_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"detailed cell never launched {missing}")
+    out = dict(C=C, n=n, t_end=t_end, rounds=rounds, wall_s=wall,
+               ms_per_round=per_round, peak_bytes=peak, spikes=spikes,
+               n_steps=int(res.n_steps), n_events=int(res.n_events),
+               launches=launches, gpu=smi)
+    del res, run
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    cur = np.full(n_small, i_small)
+    small = {}
+    for depth in (7, DETAILED_DEPTH):
+        build.reset_launches()
+        g, _ = _detailed_runner(dev, n_small, t_small, depth, cur)()
+        n_card = build.launches()
+        c, _ = _on_cpu(lambda: _detailed_runner("cpu", n_small, t_small,
+                                                depth, cur)())
+        same = _same_run(g, c) and int(g.n_resets) == int(c.n_resets)
+        Cd = g.y_final.shape[1] // 4
+        small[f"2c C={Cd}"] = same
+        say("detailed", f"card vs CPU 2c C={Cd} N={n_small} t_end={t_small}"
+            f" ms at {i_small} nA: spikes {int(c.rec.count.sum())}, events "
+            f"{int(c.n_events)}, n_steps {int(c.n_steps)}; spike trains, "
+            f"steps and final states bitwise equal: {same}; card launches "
+            f"K1 {n_card['hines_factor']} (warp "
+            f"{n_card['hines_factor_warp']}), K2 "
+            f"{n_card['hines_solve_factored']} (warp "
+            f"{n_card['hines_solve_factored_warp']})")
+        if not same or int(c.rec.count.sum()) <= 0 \
+                or int(c.n_events) <= 0 \
+                or n_card["hines_solve_factored_warp"] <= 0:
+            raise AssertionError(f"detailed 2c C={Cd} differs card vs CPU, "
+                                 f"or no spikes, events or warp launches")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        model = CellModel(branched_tree(depth=DETAILED_DEPTH,
+                                        seg_per_branch=2), device=d)
+        net = make_network(n_small, k_in=K_IN, seed=NET_SEED)
+        build.reset_launches()
+        runs.append(_on_cpu(run_bsp_fixed, model, net, cur, t_small,
+                            method="derivimplicit", device=d))
+        if d == dev:
+            k3_warp = build.launches()["hines_solve_warp"]
+    g, c = runs
+    same = _same_run(g, c)
+    small["2a C=1021"] = same
+    say("detailed", f"card vs CPU 2a (derivimplicit) C={C} N={n_small} "
+        f"t_end={t_small} ms at {i_small} nA: spikes "
+        f"{int(c.rec.count.sum())}, n_steps {int(c.n_steps)}; bitwise "
+        f"equal: {same}; card K3 warp launches {k3_warp} "
+        f"({time.perf_counter() - t1:.1f} s for the card-vs-CPU runs)")
+    if not same or k3_warp <= 0 or int(c.rec.count.sum()) <= 0:
+        raise AssertionError("detailed 2a differs card vs CPU, or K3's "
+                             "warp frame did not launch")
+    out.update(card_vs_cpu=small, k3_warp_launches=k3_warp)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--t-end", type=float, default=5.0,
@@ -3851,6 +4135,10 @@ def main(argv=None):
     train_vs_cpu = timed("29 train-card-vs-cpu", phase_train_card_vs_cpu,
                          dev, smi)
     dry = timed("32 dryrun", phase_dryrun, dev, smi)
+    detailed = timed("33 detailed", phase_detailed, dev, smi)
+    launches.update({k: detailed["launches"][k] for k in DETAILED_PATH
+                     if k.endswith("_warp")})
+    launches["hines_solve_warp"] = detailed["k3_warp_launches"]
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -3891,7 +4179,8 @@ def main(argv=None):
              "flash_backward": {f"{n} {d}": r for (n, d), r in
                                 bwd_rows.items()},
              "train": train_stats,
-             "train_card_vs_cpu": train_vs_cpu, "dryrun": dry},
+             "train_card_vs_cpu": train_vs_cpu, "dryrun": dry,
+             "detailed": detailed},
             indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,10 @@ main path's shapes (``chip_smoke.py`` phases 2, 5 and 8):
   d_elim as the ``factors[:, :C].T`` slice of ``[N, n_factors]`` rows and b
   as transposed ``[N, C]`` rows; K3 ``hines_solve`` on transposed ``[N,
   C]`` rows of the branched (``k3``) and the ball-and-stick cell (C = 11,
-  ``k3_c11``); K5 ``horizon_score`` on phase 2's inputs (the network's
+  ``k3_c11``); K1, K2 and K3 in the same layouts on the warp frame, at
+  ``chip_smoke.py`` phase 33's detailed cell (C = 1021, N = 4096:
+  ``k1_1021``, ``k2_1021``, ``k3_1021``; trees without the frame skip
+  them); K5 ``horizon_score`` on phase 2's inputs (the network's
   by-post layout, K = 16, clocks uniform in [0, 20) from seed 5, the
   first 64 at t_end = 20, horizon cap 2); K6 ``compact_ids`` on a 50 %
   mask of N = 16384 lanes with cap = N (the active path's auto cap); K7
@@ -142,6 +145,29 @@ for key, morph in (("k3", branched_tree(depth=2, seg_per_branch=2)),
     out[key] = timed(lambda: h_ops.hines_solve(q.parent, q.g_axial, d3.T,
                                                b3.T),
                      h_ref.hines_solve_ref(q.parent, q.g_axial, d3.T, b3.T))
+
+# K1, K2 and K3 on the warp frame at the detailed cell's C = 1021, N =
+# 4096 (chip_smoke.py phase 2's timed rows, the same layouts); a tree
+# without the warp frame skips these keys
+from repro_torch.kernels.hines import hines as h_cuda
+if hasattr(h_cuda, "plan"):
+    mw, dw, facw, bw = cs._hines_case(
+        branched_tree(depth=cs.DETAILED_DEPTH, seg_per_branch=2), dev,
+        cs.DETAILED_N)
+    Cw, pw = mw.C, mw.params
+    dwT, bwT = dw.T, bw.T
+    out["k1_1021"] = timed(
+        lambda: h_ops.hines_factor(pw.parent, pw.g_axial, dwT),
+        h_ref.hines_factor_ref(pw.parent, pw.g_axial, dwT))
+    facw[:, :Cw] = h_ops.hines_factor(pw.parent, pw.g_axial, dwT).T
+    dewT = facw[:, :Cw].T
+    out["k2_1021"] = timed(
+        lambda: h_ops.hines_solve_factored(pw.parent, pw.g_axial, dewT, bwT),
+        h_ref.hines_solve_factored_ref(pw.parent, pw.g_axial, dewT, bwT))
+    out["k3_1021"] = timed(
+        lambda: h_ops.hines_solve(pw.parent, pw.g_axial, dwT, bwT),
+        h_ref.hines_solve_ref(pw.parent, pw.g_axial, dwT, bwT))
+    del mw, dw, facw, bw, dewT
 
 mask = torch.from_numpy(np.random.default_rng(7).random(N) < 0.5).to(dev)
 out["k6"] = timed(lambda: ew_ops.compact_ids(mask, N),

@@ -5,13 +5,22 @@ couples each compartment i to ``parent[i]`` with the symmetric off-diagonal
 ``-g_axial[i]``.  In Hines order (``parent[i] < i``) one child->parent
 elimination sweep and one parent->child substitution sweep solve it in O(C).
 
-Batched over a leading neuron axis: ``d``, ``b`` are ``[N, C]``.  The sweeps
-are Python loops over the static compartment order, in the float operation
-order of ``repro.core.hines``, so ``hines_factor`` followed by
-``hines_solve_factored`` equals ``hines_solve`` bit for bit.  This module is
-the reference the Hines kernels (``repro_torch.kernels.hines``) are held to.
+Batched over a leading neuron axis: ``d``, ``b`` are ``[N, C]``.  Each
+value sees the float operations of ``repro.core.hines``'s sequential loops
+over the compartments in the same order, so ``hines_factor`` followed by
+``hines_solve_factored`` equals ``hines_solve`` bit for bit; the loops run
+over batches of compartments that do not depend on each other (the tree's
+depths, and siblings by rank, ``tree_sweeps``), about 2 D + its
+branchings of them for a tree of depth D instead of C, so a
+reconstructed-size cell (C = 1021) solves on the CPU in about 40 steps.
+This module is the reference the Hines kernels (``repro_torch.kernels
+.hines``) are held to.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -65,25 +74,133 @@ def axial_contrib(parent, g_axial):
     return contrib
 
 
+@dataclass(frozen=True)
+class HinesSchedule:
+    """The level schedule of one Hines-ordered tree, as the sweeps walk it.
+
+    ``nodes`` lists the compartments by depth (the root alone at depth 0),
+    ascending within a depth; depth L holds ``nodes[level_ptr[L]:
+    level_ptr[L + 1]]``.  ``children[child_ptr[p]:child_ptr[p + 1]]`` are
+    p's children in descending index, the order in which the sequential
+    forward sweep adds them."""
+    parent: tuple
+    depth: int
+    level_ptr: tuple
+    nodes: tuple
+    child_ptr: tuple
+    children: tuple
+
+
+def hines_schedule(parent) -> HinesSchedule:
+    """The level schedule of a tree given in Hines order (parent[i] < i)."""
+    par = _parents(parent)
+    C = len(par)
+    if C < 1 or par[0] >= 0 or any(not 0 <= par[i] < i for i in range(1, C)):
+        raise ValueError("parent must be in Hines order: parent[0] < 0 and "
+                         "0 <= parent[i] < i")
+    depth = [0] * C
+    for i in range(1, C):
+        depth[i] = depth[par[i]] + 1
+    D = max(depth)
+    nodes = sorted(range(C), key=lambda i: (depth[i], i))
+    level_ptr = [0] * (D + 2)
+    for i in range(C):
+        level_ptr[depth[i] + 1] += 1
+    for L in range(D + 1):
+        level_ptr[L + 1] += level_ptr[L]
+    kids = [[] for _ in range(C)]
+    for i in range(C - 1, 0, -1):
+        kids[par[i]].append(i)
+    child_ptr = [0]
+    for p in range(C):
+        child_ptr.append(child_ptr[-1] + len(kids[p]))
+    return HinesSchedule(tuple(par), D, tuple(level_ptr), tuple(nodes),
+                         tuple(child_ptr), tuple(c for k in kids for c in k))
+
+
+class Sweeps(NamedTuple):
+    """A tree's level schedule and the tensors on one device that walk it.
+    ``elim``: the child -> parent elimination, deepest depth first and
+    within a depth by each child's rank among its siblings, as (children,
+    parents) index pairs in which a parent appears at most once, so adding
+    batch after batch adds each parent's children in the order of the
+    sequential loop, each from its final row.  ``back``: the substitution,
+    depth by depth from 1, (compartments, parents).  ``words``: the
+    schedule as int32 ``[level_ptr | nodes | child_ptr | children]``, what
+    the Hines kernels' warp frame reads."""
+    schedule: HinesSchedule
+    elim: list
+    back: list
+    words: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def tree_sweeps(par: tuple, device: str) -> Sweeps:
+    """The sweeps of the tree ``par`` (a tuple in Hines order) on
+    ``device``, built once per tree and device."""
+    s = hines_schedule(par)
+    lv, nodes, cptr = s.level_ptr, s.nodes, s.child_ptr
+
+    def idx(xs, dtype=torch.int64):
+        return torch.tensor(xs, dtype=dtype, device=device)
+
+    elim = []
+    for L in range(s.depth, 0, -1):
+        ranks: list = []
+        for p in nodes[lv[L - 1]:lv[L]]:
+            for r, i in enumerate(s.children[cptr[p]:cptr[p + 1]]):
+                if r == len(ranks):
+                    ranks.append(([], []))
+                ranks[r][0].append(i)
+                ranks[r][1].append(p)
+        elim += [(idx(c), idx(p)) for c, p in ranks]
+    back = [(idx(nodes[lv[L]:lv[L + 1]]),
+             idx([par[i] for i in nodes[lv[L]:lv[L + 1]]]))
+            for L in range(1, s.depth + 1)]
+    words = idx(lv + nodes + cptr + s.children, torch.int32)
+    return Sweeps(s, elim, back, words)
+
+
+def _batches(parent, like):
+    sw = tree_sweeps(tuple(_parents(parent)), str(like.device))
+    return sw.elim, sw.back
+
+
+def _eliminate(elim, gax, dd, bb=None):
+    """The child -> parent elimination, in place, batch by batch."""
+    for c, p in elim:
+        f = gax[c] / dd[:, c]
+        dd[:, p] = dd[:, p] + (-f * gax[c])
+        if bb is not None:
+            bb[:, p] = bb[:, p] + f * bb[:, c]
+
+
+def _forward(elim, gax, d_elim, bb):
+    """K2's forward sweep on a factored diagonal, in place."""
+    for c, p in elim:
+        f = gax[c] / d_elim[:, c]
+        bb[:, p] = bb[:, p] + f * bb[:, c]
+
+
+def _back_substitute(back, gax, dd, bb):
+    v = torch.zeros_like(bb)
+    v[:, 0] = bb[:, 0] / dd[:, 0]
+    for i, p in back:
+        v[:, i] = (bb[:, i] + gax[i] * v[:, p]) / dd[:, i]
+    return v
+
+
 def hines_solve(parent, g_axial, d, b):
     """Solve the Hines-ordered tree systems; returns v with (D-A)v = b.
 
     parent: int[C] (parent[0] == -1), g_axial: f64[C] (to-parent
     conductance), d: f64[N, C] assembled diagonals, b: f64[N, C].
     """
-    par, gax = _parents(parent), _gax(g_axial, d)
-    C = d.shape[-1]
+    elim, back = _batches(parent, d)
+    gax = _gax(g_axial, d)
     dd, bb = d.clone(), b.clone()
-    for idx in range(C - 1, 0, -1):
-        p = par[idx]
-        f = gax[idx] / dd[:, idx]
-        dd[:, p] = dd[:, p] + (-f * gax[idx])
-        bb[:, p] = bb[:, p] + f * bb[:, idx]
-    v = torch.zeros_like(bb)
-    v[:, 0] = bb[:, 0] / dd[:, 0]
-    for i in range(1, C):
-        v[:, i] = (bb[:, i] + gax[i] * v[:, par[i]]) / dd[:, i]
-    return v
+    _eliminate(elim, gax, dd, bb)
+    return _back_substitute(back, gax, dd, bb)
 
 
 def hines_factor(parent, g_axial, d):
@@ -93,13 +210,9 @@ def hines_factor(parent, g_axial, d):
     side, so ``d_elim`` with ``g_axial`` is an LU-style factor of the tree
     matrix, reused by :func:`hines_solve_factored`.
     """
-    par, gax = _parents(parent), _gax(g_axial, d)
-    C = d.shape[-1]
+    elim, _ = _batches(parent, d)
     dd = d.clone()
-    for idx in range(C - 1, 0, -1):
-        p = par[idx]
-        f = gax[idx] / dd[:, idx]
-        dd[:, p] = dd[:, p] + (-f * gax[idx])
+    _eliminate(elim, _gax(g_axial, d), dd)
     return dd
 
 
@@ -109,18 +222,11 @@ def hines_solve_factored(parent, g_axial, d_elim, b):
     Two O(C) sweeps with the same value sequence on ``b`` as
     :func:`hines_solve`, so factor + factored solve == fused solve bitwise.
     """
-    par, gax = _parents(parent), _gax(g_axial, d_elim)
-    C = d_elim.shape[-1]
+    elim, back = _batches(parent, d_elim)
+    gax = _gax(g_axial, d_elim)
     bb = b.clone()
-    for idx in range(C - 1, 0, -1):
-        p = par[idx]
-        f = gax[idx] / d_elim[:, idx]
-        bb[:, p] = bb[:, p] + f * bb[:, idx]
-    v = torch.zeros_like(bb)
-    v[:, 0] = bb[:, 0] / d_elim[:, 0]
-    for i in range(1, C):
-        v[:, i] = (bb[:, i] + gax[i] * v[:, par[i]]) / d_elim[:, i]
-    return v
+    _forward(elim, gax, d_elim, bb)
+    return _back_substitute(back, gax, d_elim, bb)
 
 
 def dense_tree_matrix(parent, g_axial, diag_extra):

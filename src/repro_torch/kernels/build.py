@@ -26,7 +26,10 @@ step's backward pass launches through
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises when
 it is not 0.  Each wrapper adds one to its launch counter (``count``)
-where it launches its kernel, and nowhere else.  K10 counts each call under
+where it launches its kernel, and nowhere else.  K1, K2 and K3 count every
+launch under their names and a launch of their warp frame (the trees
+whose tiles do not fit) also under ``hines_{factor,solve_factored,
+solve}_warp``.  K10 counts each call under
 ``flash_attention`` and under the kernel that ran
 (``flash_attention_{f32_decode,f32_prefill,decode,prefill}``); its
 backward counts ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv``
@@ -55,6 +58,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict = {}
 _LOGS: dict = {}
 LAUNCHES = {"hines_factor": 0, "hines_solve_factored": 0, "hines_solve": 0,
+            "hines_factor_warp": 0, "hines_solve_factored_warp": 0,
+            "hines_solve_warp": 0,
             "hh_rhs": 0, "horizon_score": 0, "compact_ids": 0,
             "compact_gather": 0, "compact_ids_rows": 0,
             "compact_gather_rows": 0, "segment_rank": 0, "compact_rows": 0,

@@ -8,20 +8,29 @@ Arrays are ``[C, N]`` (compartments x neurons) as in the JAX package; any
 strides are accepted, so a transposed view of ``[N, C]`` rows needs no
 copy.  The output has the strides of its main input.
 
-Each kernel stages a tile of ``TILE`` neurons per block in shared memory --
-one operand for K1, three for K2, two for K3 (``TILES``) -- and gives each
+Each kernel has two frames, and ``plan`` picks one from C.  The tile
+frame stages a tile of ``TILE`` neurons per block in shared memory -- one
+operand for K1, three for K2, two for K3 (``TILES``) -- and gives each
 neuron four threads ("lanes") that walk the tree's level schedule, which
-each block derives from ``parent`` (``ref.hines_schedule`` models it).  The
-wrappers, called thousands of times a run, check their operands in one
-expression, keep their typed launchers and hand over raw pointers.
+each block derives from ``parent`` (``core.hines.hines_schedule`` models
+it).  A tree whose tile does not fit takes the warp frame: one warp per
+neuron on the same schedule, built once per tree by
+``core.hines.tree_sweeps`` and handed over by ``schedule``, its rows
+staged in shared memory while they fit (``WARP_ROWS``) and walked in
+device memory above that.  The plan refuses only C < 1, and the schedule
+a tree out of Hines order.  The wrappers, called thousands of times a run, check
+their operands in one expression, keep their typed launchers and hand
+over raw pointers.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import hines as core_hines
 from repro_torch.kernels import build
 
 _I64, _I32, _P = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
@@ -30,20 +39,37 @@ _ARGS = {"hines_factor": [_P, _P, _P, _I64, _I64, _P, _I64, _I64, _I32, _I32,
          "hines_solve_factored": [_P, _P, _P, _I64, _I64, _P, _I64, _I64, _P,
                                   _I64, _I64, _I32, _I32, _P]}
 _ARGS["hines_solve"] = _ARGS["hines_solve_factored"]
+# the warp frame's one signature: parent, g_axial, schedule, D, a, b, out
+# (each with its two strides), workspace, C, N, staged, stream
+_WARP_ARGS = [_P, _P, _P, _I32, _P, _I64, _I64, _P, _I64, _I64, _P, _I64,
+              _I64, _P, _I32, _I32, _I32, _P]
 
 # Each kernel's tiles of [C][TILE + 1] float64: K1 d; K2 d_elim, b and the
 # multipliers; K3 d and b -- ``tile_smem_bytes`` in csrc/hines.cu.
 TILES = {"hines_factor": 1, "hines_solve_factored": 3, "hines_solve": 2}
 TILE = 32                      # neurons per block (kNB in csrc/hines.cu)
+# The warp frame's staged rows of C float64: g_axial and K1 d; K2 d_elim and
+# b; K3 d and b -- ``warp_smem_bytes`` in csrc/hines.cu.
+WARP_ROWS = {"hines_factor": 2, "hines_solve_factored": 3, "hines_solve": 3}
 SMEM_MAX = 232448              # H100: a block's shared memory after opting
 #                                in above 48 KB (227 KB, NVIDIA's Hopper
 #                                architecture documentation)
 
 
+class Plan(NamedTuple):
+    """How a kernel runs a tree of C compartments: ``frame`` "tile" (TILE
+    neurons a block) or "warp" (one neuron a block); ``staged``, whether
+    the block's operands sit in shared memory; ``smem``, the block's
+    dynamic shared memory in bytes."""
+    frame: str
+    staged: bool
+    smem: int
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(kernel: str):
     fn = getattr(build.load("hines"), f"{kernel}_launch")
-    fn.argtypes = _ARGS[kernel]
+    fn.argtypes = _WARP_ARGS if kernel.endswith("_warp") else _ARGS[kernel]
     fn.restype = ctypes.c_int
     return fn
 
@@ -55,27 +81,57 @@ def tile_smem_bytes(nb: int, C: int, tiles: int = 3) -> int:
     return 8 * tiles * (nb + 1) * C + 32 * C + 12
 
 
+def warp_smem_bytes(C: int, kernel: str = "hines_solve_factored") -> int:
+    """Shared memory of a staged warp-frame block: ``WARP_ROWS[kernel]``
+    rows of C float64."""
+    return 8 * WARP_ROWS[kernel] * C
+
+
 @functools.lru_cache(maxsize=None)
-def tile_neurons(C: int, kernel: str = "hines_solve_factored") -> int:
-    """The neurons per block of ``kernel`` (K2 by default) for C
-    compartments: ``TILE``, once its tile is checked against the block's
-    shared memory.  A C whose tile exceeds it is refused."""
+def plan(C: int, kernel: str = "hines_solve_factored") -> Plan:
+    """The frame of ``kernel`` (K2 by default) for C compartments: the tile
+    frame while its tile fits the block's shared memory, else the warp
+    frame, staged while its rows fit, else walking device memory.  Only
+    C < 1 is refused."""
     if C < 1:
         raise ValueError(f"a tree has at least one compartment, got C={C}")
-    tiles = TILES[kernel]
-    if tile_smem_bytes(TILE, C, tiles) > SMEM_MAX:
-        raise ValueError(
-            f"C={C} compartments do not fit a {kernel} tile: "
-            f"{tile_smem_bytes(TILE, C, tiles)} bytes of shared memory for "
-            f"{TILE} neurons, at most {SMEM_MAX} (C <= "
-            f"{max_compartments(kernel)})")
-    return TILE
+    tile = tile_smem_bytes(TILE, C, TILES[kernel])
+    if tile <= SMEM_MAX:
+        return Plan("tile", True, tile)
+    rows = warp_smem_bytes(C, kernel)
+    if rows <= SMEM_MAX:
+        return Plan("warp", True, rows)
+    return Plan("warp", False, 0)
 
 
 def max_compartments(kernel: str) -> int:
     """The largest C whose tile ``kernel`` takes."""
     per_c = tile_smem_bytes(TILE, 1, TILES[kernel]) - 12
     return (SMEM_MAX - 12) // per_c
+
+
+_TREES: dict = {}           # the last trees' addresses -> (parent, words, D)
+_TREES_MAX = 64
+
+
+def schedule(parent):
+    """The level schedule of the tree ``parent`` (int32 [C] on a device) as
+    the warp frame reads it: ``core.hines.tree_sweeps``' int32 words on the
+    same device, and the deepest depth D.  ``tree_sweeps`` builds them once
+    per tree (and refuses a tree out of Hines order); the tree's one host
+    copy is made when its address is new, and the last ``_TREES_MAX``
+    addresses are kept, each with its version and a reference to the tree,
+    so an edited tree is looked up anew."""
+    key = (parent.data_ptr(), parent.shape[0], parent.device,
+           parent._version)
+    hit = _TREES.get(key)
+    if hit is None:
+        sw = core_hines.tree_sweeps(tuple(parent.tolist()),
+                                    str(parent.device))
+        if len(_TREES) >= _TREES_MAX:
+            del _TREES[next(iter(_TREES))]
+        hit = _TREES[key] = (parent, sw.words, sw.schedule.depth)
+    return hit[1], hit[2]
 
 
 def _check_tree(parent, g_axial, C, device):
@@ -116,17 +172,37 @@ def _check(parent, g_axial, a, b, names):
         _check_tree(parent, g_axial, C, dev)
 
 
+def _warp(kernel, parent, g_axial, a, b, out, staged):
+    """Launch ``kernel``'s warp frame; K3 walking device memory gets its
+    [N, C] workspace here."""
+    C, N = out.shape
+    words, D = schedule(parent)
+    work = None if staged or kernel != "hines_solve" else torch.empty(
+        (N, C), dtype=torch.float64, device=out.device)
+    As, bs, os = a.stride(), b.stride(), out.stride()
+    err = _launcher(f"{kernel}_warp")(
+        parent.data_ptr(), g_axial.data_ptr(), words.data_ptr(), D,
+        a.data_ptr(), As[0], As[1], b.data_ptr(), bs[0], bs[1],
+        out.data_ptr(), os[0], os[1], None if work is None else
+        work.data_ptr(), C, N, int(staged), build.stream_ptr(out.device))
+    build.check(err, f"{kernel}_warp")
+    build.count(f"{kernel}_warp")
+
+
 def hines_factor_cuda(parent, g_axial, d):
     """K1: d [C, N] -> d_elim [C, N] (the child->parent elimination)."""
     C, N = d.shape
     _check(parent, g_axial, d, d, ("d", "d"))
-    tile_neurons(C, "hines_factor")
+    frame, staged, _ = plan(C, "hines_factor")
     out = torch.empty_like(d)
-    ds, es = d.stride(), out.stride()
-    err = _launcher("hines_factor")(
-        parent.data_ptr(), g_axial.data_ptr(), d.data_ptr(), ds[0], ds[1],
-        out.data_ptr(), es[0], es[1], C, N, build.stream_ptr(d.device))
-    build.check(err, "hines_factor")
+    if frame == "tile":
+        ds, es = d.stride(), out.stride()
+        err = _launcher("hines_factor")(
+            parent.data_ptr(), g_axial.data_ptr(), d.data_ptr(), ds[0], ds[1],
+            out.data_ptr(), es[0], es[1], C, N, build.stream_ptr(d.device))
+        build.check(err, "hines_factor")
+    else:
+        _warp("hines_factor", parent, g_axial, d, d, out, staged)
     build.count("hines_factor")
     return out
 
@@ -134,14 +210,17 @@ def hines_factor_cuda(parent, g_axial, d):
 def _solve(kernel, parent, g_axial, a, b, names):
     C, N = b.shape
     _check(parent, g_axial, b, a, names)
-    tile_neurons(C, kernel)
+    frame, staged, _ = plan(C, kernel)
     out = torch.empty_like(b)
-    As, bs, xs = a.stride(), b.stride(), out.stride()
-    err = _launcher(kernel)(
-        parent.data_ptr(), g_axial.data_ptr(), a.data_ptr(), As[0], As[1],
-        b.data_ptr(), bs[0], bs[1], out.data_ptr(), xs[0], xs[1], C, N,
-        build.stream_ptr(b.device))
-    build.check(err, kernel)
+    if frame == "tile":
+        As, bs, xs = a.stride(), b.stride(), out.stride()
+        err = _launcher(kernel)(
+            parent.data_ptr(), g_axial.data_ptr(), a.data_ptr(), As[0],
+            As[1], b.data_ptr(), bs[0], bs[1], out.data_ptr(), xs[0], xs[1],
+            C, N, build.stream_ptr(b.device))
+        build.check(err, kernel)
+    else:
+        _warp(kernel, parent, g_axial, a, b, out, staged)
     build.count(kernel)
     return out
 
@@ -155,6 +234,7 @@ def hines_solve_factored_cuda(parent, g_axial, d_elim, b):
 def hines_solve_cuda(parent, g_axial, d, b):
     """K3: d, b [C, N] -> x [C, N] (elimination + both sweeps, fused).
 
-    ``d`` is eliminated in the block's shared-memory tile, so neither input
-    changes and no device workspace is allocated."""
+    ``d`` is eliminated in the block's shared memory (the tile, or the warp
+    frame's staged rows), so neither input changes; only the warp frame
+    walking device memory allocates a workspace."""
     return _solve("hines_solve", parent, g_axial, d, b, ("b", "d"))

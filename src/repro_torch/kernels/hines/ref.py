@@ -1,14 +1,18 @@
 """Plain PyTorch versions of the Hines kernels, in the ``[C, N]`` layout,
-a model of the level schedule that each block of the kernels derives from
-the tree (``hines_schedule``), and the three kernels' orders on it
-(``hines_*_sched_ref``)."""
+and the three kernels' orders on the level schedule that each tile block
+derives from the tree and the warp frame is handed
+(``core.hines.hines_schedule``, re-exported here): ``hines_*_sched_ref``."""
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import torch
 
 from repro_torch.core import hines as core_hines
+from repro_torch.core.hines import HinesSchedule, hines_schedule
+
+__all__ = ["HinesSchedule", "hines_schedule", "hines_factor_ref",
+           "hines_solve_factored_ref", "hines_solve_ref",
+           "hines_factor_sched_ref", "hines_solve_factored_sched_ref",
+           "hines_solve_sched_ref"]
 
 
 def hines_factor_ref(parent, g_axial, d):
@@ -24,50 +28,6 @@ def hines_solve_factored_ref(parent, g_axial, d_elim, b):
 def hines_solve_ref(parent, g_axial, d, b):
     """d, b: [C, N] -> x: [C, N] (fused eliminate + solve)."""
     return core_hines.hines_solve(parent, g_axial, d.T, b.T).T
-
-
-@dataclass(frozen=True)
-class HinesSchedule:
-    """The level schedule of one Hines-ordered tree, as the kernels walk it.
-
-    ``nodes`` lists the compartments by depth (the root alone at depth 0),
-    ascending within a depth; depth L holds ``nodes[level_ptr[L]:
-    level_ptr[L + 1]]``.  ``children[child_ptr[p]:child_ptr[p + 1]]`` are
-    p's children in descending index, the order in which the sequential
-    forward sweep adds them."""
-    parent: tuple
-    depth: int
-    level_ptr: tuple
-    nodes: tuple
-    child_ptr: tuple
-    children: tuple
-
-
-def hines_schedule(parent) -> HinesSchedule:
-    """The level schedule of a tree given in Hines order (parent[i] < i)."""
-    par = [int(p) for p in parent]
-    C = len(par)
-    if C < 1 or par[0] >= 0 or any(not 0 <= par[i] < i for i in range(1, C)):
-        raise ValueError("parent must be in Hines order: parent[0] < 0 and "
-                         "0 <= parent[i] < i")
-    depth = [0] * C
-    for i in range(1, C):
-        depth[i] = depth[par[i]] + 1
-    D = max(depth)
-    nodes = sorted(range(C), key=lambda i: (depth[i], i))
-    level_ptr = [0] * (D + 2)
-    for i in range(C):
-        level_ptr[depth[i] + 1] += 1
-    for L in range(D + 1):
-        level_ptr[L + 1] += level_ptr[L]
-    kids = [[] for _ in range(C)]
-    for i in range(C - 1, 0, -1):
-        kids[par[i]].append(i)
-    child_ptr = [0]
-    for p in range(C):
-        child_ptr.append(child_ptr[-1] + len(kids[p]))
-    return HinesSchedule(tuple(par), D, tuple(level_ptr), tuple(nodes),
-                         tuple(child_ptr), tuple(c for k in kids for c in k))
 
 
 def _eliminate(sched: HinesSchedule, gax, w, x=None):

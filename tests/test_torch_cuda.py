@@ -222,10 +222,12 @@ def test_factored_solve_bitwise_on_random_trees(dev, C, seed):
                                       ("hines_solve", 416)])
 def test_trees_over_a_kernel_tile_are_refused(dev, kernel, C):
     """A tree one compartment over a kernel's tile limit (K1 785, K2 282,
-    K3 415) is refused with a ValueError naming the limit, and nothing is
-    launched; at the limit it runs, bitwise equal to its plain version."""
+    K3 415) is no longer refused: it runs on the warp frame, counted under
+    the kernel's name and its ``_warp`` counter; at the limit the tile
+    frame runs and the warp counter stays 0.  Both bitwise equal to the
+    plain version."""
     rng = np.random.default_rng(C)
-    for c, refused in ((C, True), (C - 1, False)):
+    for c, warp in ((C, 1), (C - 1, 0)):
         parent = [-1] + [int(rng.integers(max(0, i - 8), i))
                          for i in range(1, c)]
         par = torch.as_tensor(parent, dtype=torch.int32)
@@ -235,15 +237,74 @@ def test_trees_over_a_kernel_tile_are_refused(dev, kernel, C):
         b = torch.from_numpy(rng.normal(size=(c, 40)))
         args = (d,) if kernel == "hines_factor" else (d, b)
         build.reset_launches()
-        call = lambda: getattr(h_ops, kernel)(  # noqa: E731
-            par.to(dev), gax.to(dev), *[a.to(dev) for a in args])
-        if refused:
-            with pytest.raises(ValueError, match="at most 232448"):
-                call()
-            assert build.launches()[kernel] == 0
-        else:
-            _eq(call(), getattr(h_ref, f"{kernel}_ref")(par, gax, *args))
-            assert build.launches()[kernel] == 1
+        got = getattr(h_ops, kernel)(par.to(dev), gax.to(dev),
+                                     *[a.to(dev) for a in args])
+        _eq(got, getattr(h_ref, f"{kernel}_ref")(par, gax, *args))
+        n = build.launches()
+        assert (n[kernel], n[f"{kernel}_warp"]) == (1, warp)
+
+
+def _random_tree(C, seed):
+    """A Hines-ordered tree: parent[i] drawn below i, more or less bushy."""
+    rng = np.random.default_rng(seed)
+    span = rng.integers(1, C) if C > 1 else 1
+    return [-1] + [int(rng.integers(max(0, i - span), i))
+                   for i in range(1, C)]
+
+
+# Trees past the tiles: detailed cells (branched_tree at depths 7-10 and 12,
+# C = 509 ... 16381; K2's rows are walked in device memory at 16381, K1's
+# and K3's too), random trees just past K2's (283) and K1's (786) tiles
+# and at K2's and K3's last staged C (9685), and a 4000-compartment chain
+# (depth C - 1)
+LARGE_TREES = {
+    **{f"branched_{k}": (lambda k=k: morphology.branched_tree(depth=k)
+                         .parent) for k in (7, 8, 9, 10, 12)},
+    "random_283": lambda: _random_tree(283, 283),
+    "random_786": lambda: _random_tree(786, 786),
+    "random_9685": lambda: _random_tree(9685, 9685),
+    "chain_4000": lambda: morphology.ball_and_stick(n_dend=4000).parent}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4096, 1037])
+@pytest.mark.parametrize("name", list(LARGE_TREES))
+def test_warp_frame_bitwise_on_large_trees(dev, name, N):
+    """K1, K2 and K3 on trees whose tiles do not fit, in the main path's
+    layouts (d and b as transposed [N, C] rows, d_elim as the factor-row
+    slice) and, at the ragged N, K2 on contiguous [C, N] copies: each
+    bitwise its plain version, K3 also K2(K1), each launch counted under
+    its warp frame where the plan says so."""
+    from repro_torch.kernels.hines import hines as h_cuda
+    parent = LARGE_TREES[name]()
+    C = len(parent)
+    rng = np.random.default_rng(C + N)
+    par = torch.as_tensor(parent, dtype=torch.int32)
+    gax = torch.from_numpy(rng.uniform(0.1, 2.0, C))
+    d = hines_assemble(parent, gax, torch.from_numpy(
+        rng.uniform(0.5, 1.5, (N, C))))
+    b = torch.from_numpy(rng.normal(size=(N, C)))
+    pd, gd, dd, bd = par.to(dev), gax.to(dev), d.to(dev), b.to(dev)
+    build.reset_launches()
+    de = h_ops.hines_factor(pd, gd, dd.T)
+    _eq(de, h_ref.hines_factor_ref(pd, gd, dd.T))
+    fac = torch.full((N, 5 * C + 2), float("nan"), dtype=torch.float64,
+                     device=dev)
+    fac[:, :C] = de.T
+    x = h_ops.hines_solve_factored(pd, gd, fac[:, :C].T, bd.T)
+    _eq(x, h_ref.hines_solve_factored_ref(pd, gd, fac[:, :C].T, bd.T))
+    x3 = h_ops.hines_solve(pd, gd, dd.T, bd.T)
+    _eq(x3, x)
+    _eq(x3, h_ref.hines_solve_ref(pd, gd, dd.T, bd.T))
+    n = build.launches()
+    for k in ("hines_factor", "hines_solve_factored", "hines_solve"):
+        assert n[k] == 1
+        assert n[f"{k}_warp"] == (h_cuda.plan(C, k).frame == "warp")
+    assert n["hines_solve_factored_warp"] == 1
+    if N != 4096:
+        cn = h_ops.hines_solve_factored(pd, gd, de.contiguous(),
+                                        bd.T.contiguous())
+        _eq(cn, x)
 
 
 @pytest.mark.cuda
