@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--t-end MS] [--out FILE] [--profile ROUNDS]
+    python3 chip_smoke.py --checks FILE     (the second process alone)
 
 Phases, each reported on its own lines:
 
@@ -13,9 +14,12 @@ Phases, each reported on its own lines:
      clocks at t_end, +-inf and NaN, untimed); K1, K2 and K3 on trees past
      their tiles, the warp frame's cases -- branched_tree at depths 7, 8,
      9, 10 and 12 (C = 509 ... 16381), random trees of C = 283 and 786 and
-     a 4000-compartment chain -- at N = 4096 and 4133 in the main path's
-     layouts: K1, K2 and K3 bitwise, K3 == K2(K1), each launch in the frame
-     ``hines.plan`` names, the three timed at C = 1021, N = 4096 (the
+     a 4000-compartment chain at N = 4096 and 4133, chains at each
+     kernel's warp-frame limits and one above them at N = 4133 -- in the
+     main path's layouts: K1, K2 and K3 bitwise (on a chain of the limits
+     each kernel whose own limit it is), K3 == K2(K1), each launch
+     in the frame ``hines.plan`` names (with each kernel's place, neurons
+     a block and blocks an SM), the three timed at C = 1021, N = 4096 (the
      ``*_warp`` rows of the ``kernels`` line); with each kernel's time per
      call (CUDA events around each of 25 calls, median: the wrapper's host
      work included),
@@ -236,6 +240,16 @@ a 6 ms run), the SPMD phases 12 and 30 and the speculative phase 19 4
 ms, the services of phases 23 and 31 2.6 ms, phase 24's SPMD resumes 3
 ms and the detailed cell of phase 33 3 ms.  Each phase's wall is
 printed as it ends (``[wall]``) and all of them on the ``[done]`` line.
+
+The phases run in the order 1, 2, 3, 4, 5, 8, 12, 13, 30, 15, 17, 27 --
+every kernel timing but phase 31's -- then 9, 10, 16, 18, 19, 22, 23,
+25, 28, 29, 32, 33 and 31.  Phases 6, 7, 11, 14, 20, 24 and 26 check
+the card against the CPU and time nothing: once phase 27 has ended the script starts them, in turn, in a
+second process on the same card (``--checks FILE``, in a session of its
+own, stopped with the script), and prints that process's lines when it
+ends; phase 31 waits for it before it times its kernels, and a failure
+there fails the script.  The walls, ms per round and tok/s of phases 9-33
+are taken with that process running beside them.
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The
 last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -244,7 +258,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -564,11 +580,16 @@ def bound_ms(nbytes, ops, rate=FP64_FLOPS):
 
 
 # ---------------------------------------------------------------- phase 1 --
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_setup():
     from repro_torch.kernels import build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     say("setup", f"nvidia-smi: {smi}")
     nvcc = build.nvcc_path()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
@@ -614,25 +635,57 @@ def _large_trees():
     """Trees whose K2 tile does not fit (phase 2's warp-frame cases, name
     -> (parent, g_axial or None)): the detailed cells branched_tree at
     depths 7, 8, 9, 10 and 12 (C = 509 ... 16381, their own g_axial),
-    random trees just past K2's and K1's tiles (C = 283, 786) and a
-    4000-compartment chain (depth C - 1)."""
+    random trees just past K2's and K1's tiles (C = 283, 786), a
+    4000-compartment chain (depth C - 1), and chains at each kernel's
+    warp-frame limits and one above them (``hines.warp_limits``: a chain's
+    schedule words are at their bound, so each kernel's place changes
+    there)."""
     from repro_torch.core.morphology import ball_and_stick, branched_tree
     out = {f"branched_{k}": branched_tree(depth=k) for k in DETAILED_DEPTHS}
     out["chain_4000"] = ball_and_stick(n_dend=4000)
     trees = {k: (m.parent, m.g_axial) for k, m in out.items()}
     trees.update({f"random_{C}": (_random_tree(C, C), None)
                   for C in (283, 786)})
+    trees.update({f"chain_{C}": ([-1] + list(range(C - 1)), None)
+                  for C in _limit_chains()})
     return trees
+
+
+def _limit_chains():
+    """Each Hines kernel's warp-frame limits, and one above each."""
+    from repro_torch.kernels.hines import hines as h_cuda
+    return sorted({c + up for k in HINES for c in h_cuda.warp_limits(k)
+                   for up in (0, 1)})
+
+
+def _warp_plans(par):
+    """Each Hines kernel's plan for the tree ``par`` (int32 on the card) as
+    its wrapper makes it, from the tree's schedule words, with the blocks
+    an SM holds when it takes the warp frame."""
+    from repro_torch.kernels.hines import hines as h_cuda
+    C, tree = par.numel(), h_cuda.schedule(par)
+    tables = h_cuda.warp_tables(C, tree.words.numel(), tree.F)
+    out = {}
+    for k in HINES:
+        pl = h_cuda.plan(C, k, tables)
+        out[k] = (pl.frame, pl.place, pl.neurons, pl.smem,
+                  h_cuda.blocks_per_sm(k, C, tables)
+                  if pl.frame == "warp" else None)
+    return out
 
 
 def _large_tree_kernels(dev):
     """K1, K2 and K3 on the trees of ``_large_trees`` at N = 4096 and a
-    ragged N, in the main path's layouts (d and b as transposed [N, C]
-    rows, d_elim as the slice of [N, 5 C + 2] factor rows): K1, K2 and K3
-    bitwise their plain versions, K3 == K2(K1); each kernel's frame from
-    ``hines.plan`` and its warp-frame launches.  The detailed cell of the
+    ragged N (the chains at the limits at the ragged N alone), in the main
+    path's layouts (d and b as transposed [N, C] rows, d_elim as the slice
+    of [N, 5 C + 2] factor rows): K1, K2 and K3 bitwise their plain
+    versions (at a chain of the limits, each kernel whose own limit it is
+    at or one above: the plain versions walk such a chain's C levels one
+    by one), K3 == K2(K1); each kernel's frame from ``hines.plan`` and its
+    warp-frame launches.  The detailed cell of the
     slice's main path (C = 1021, N = 4096) is timed: the warp frame's rows
     of the ``kernels`` line."""
+    from repro_torch.core import hines as core_hines
     from repro_torch.core.hines import hines_assemble
     from repro_torch.kernels import build
     from repro_torch.kernels.hines import hines as h_cuda
@@ -646,7 +699,10 @@ def _large_tree_kernels(dev):
         par = torch.tensor(parent, dtype=torch.int32, device=dev)
         gax = torch.rand(C, generator=gen, **f64) * 1.9 + 0.1 \
             if gax is None else torch.as_tensor(gax, **f64)
-        for n in (WARP_N, WARP_N + 37):
+        limit = name in {f"chain_{c}" for c in _limit_chains()}
+        own = [k for k in HINES if not limit or C in {
+            c + up for c in h_cuda.warp_limits(k) for up in (0, 1)}]
+        for n in (WARP_N + 37,) if limit else (WARP_N, WARP_N + 37):
             d = hines_assemble(parent, gax, torch.rand((n, C), generator=gen,
                                                        **f64) + 0.5)
             b = torch.randn((n, C), generator=gen, **f64)
@@ -654,26 +710,24 @@ def _large_tree_kernels(dev):
             dT, bT = d.T, b.T
             build.reset_launches()
             de = h_ops.hines_factor(par, gax, dT)
-            err = {"hines_factor": check_close(
-                f"hines_factor {name} C={C} N={n}", de,
-                h_ref.hines_factor_ref(par, gax, dT), exact=True)}
             fac[:, :C] = de.T
             deT = fac[:, :C].T
             x = h_ops.hines_solve_factored(par, gax, deT, bT)
-            err["hines_solve_factored"] = check_close(
-                f"hines_solve_factored {name} C={C} N={n}", x,
-                h_ref.hines_solve_factored_ref(par, gax, deT, bT),
-                exact=True)
             x3 = h_ops.hines_solve(par, gax, dT, bT)
+            n_warp = build.launches()
             check_close(f"hines_solve == K2(K1) {name} C={C} N={n}", x3, x,
                         exact=True)
-            n_warp = build.launches()
-            err["hines_solve"] = check_close(
-                f"hines_solve {name} C={C} N={n}", x3,
-                h_ref.hines_solve_ref(par, gax, dT, bT), exact=True)
-            plans = {k: h_cuda.plan(C, k) for k in HINES}
+            err = {k: check_close(f"{k} {name} C={C} N={n}", got,
+                                  ref(par, gax, *a), exact=True)
+                   for k, got, ref, a in (
+                       ("hines_factor", de, h_ref.hines_factor_ref, (dT,)),
+                       ("hines_solve_factored", x,
+                        h_ref.hines_solve_factored_ref, (deT, bT)),
+                       ("hines_solve", x3, h_ref.hines_solve_ref, (dT, bT)))
+                   if k in own}
+            plans = _warp_plans(par)
             for k, pl in plans.items():
-                if n_warp[f"{k}_warp"] != (pl.frame == "warp"):
+                if n_warp[f"{k}_warp"] != (pl[0] == "warp"):
                     raise AssertionError(f"{k} {name}: {n_warp} against "
                                          f"its plan {pl}")
             if name != "branched_8" or n != WARP_N:
@@ -697,12 +751,18 @@ def _large_tree_kernels(dev):
             for k, row in rows.items():
                 say("kernels", f"{name} C={C} N={n} ({plans[k[:-5]]}): {k} "
                     f"{fmt_row(row)}; bitwise")
-        say("kernels", f"{name} C={C}: plans "
-            f"{ {k: tuple(v[:2]) for k, v in plans.items()} }; K1, K2, K3 "
-            f"bitwise their plain versions, K3 == K2(K1) at N {WARP_N} and "
-            f"{WARP_N + 37}")
+        held = ", ".join(f"K{HINES.index(k) + 1}" for k in own)
+        say("kernels", f"{name} C={C}: plans (frame, place, neurons a "
+            f"block, shared bytes, blocks an SM) {plans}; {held} equal "
+            f"bit for bit to the plain version{'s' * (len(own) > 1)}, K3 "
+            f"== K2(K1) at N "
+            f"{'' if limit else f'{WARP_N} and '}{WARP_N + 37}")
         del d, b, fac, de, x, x3
         torch.cuda.empty_cache()
+    # the plain versions' index batches of these trees, cached on the card
+    # (0.2 GB for the long chains), would stay allocated under the later
+    # phases' peak-memory figures (phase 32 holds its own to the dry run)
+    core_hines.tree_sweeps.cache_clear()
     return rows
 
 
@@ -3541,12 +3601,13 @@ def _rows_kernel_rows(dev, sel, spk, used, cap, s_cap):
 
 
 def phase_compact_service(dev, dense, spike_cap, smi, lanes=4, tenants=8,
-                          t_end=None):
+                          t_end=None, before_rows=None):
     """``SimService`` at full width over the active-set runner: phase 23's
     lanes, tenants, currents, QoS classes and poisoned tenant, with
     ``batch="compact", batch_cap=N/4, fanout="compact"`` at phase 4's spike
     cap, ``queue="wheel"`` and the fused horizon; counts zeroed just
-    before the batched service."""
+    before the batched service.  ``before_rows`` is called before the rows
+    kernels are timed (the script waits there for its second process)."""
     from repro_torch.checkpoint import FaultPlan
     from repro_torch.kernels import build
     from repro_torch.serve import TenantRequest
@@ -3639,6 +3700,8 @@ def phase_compact_service(dev, dense, spike_cap, smi, lanes=4, tenants=8,
     spk = _Recorder.busiest(spk_masks, lambda m: m)
     used = _Recorder.busiest(
         spk_masks, lambda m: m & _compact_tenants(m, s_cap)[:, None])
+    if before_rows is not None:
+        before_rows()
     rows, busy = _rows_kernel_rows(dev, sel, spk, used, cap, s_cap)
     out = dict(lanes=lanes, tenants=tenants, t_end=t_end, batch_cap=cap,
                spike_cap=spike_cap, rounds=res.rounds, wall_s=wall,
@@ -3956,7 +4019,6 @@ def phase_detailed(dev, smi, t_end=DETAILED_T_END, n=DETAILED_N,
     from repro_torch.core.morphology import branched_tree
     from repro_torch.core.network import make_network
     from repro_torch.kernels import build
-    from repro_torch.kernels.hines import hines as h_cuda
     run = _detailed_runner(dev, n, t_end)
     C = branched_tree(depth=DETAILED_DEPTH, seg_per_branch=2).n_comp
     build.reset_launches()
@@ -3970,7 +4032,9 @@ def phase_detailed(dev, smi, t_end=DETAILED_T_END, n=DETAILED_N,
     peak = torch.cuda.max_memory_allocated()
     spikes = int(res.rec.count.sum())
     per_round = wall / max(rounds, 1) * 1e3
-    plans = {k: tuple(h_cuda.plan(C, k)) for k in HINES}
+    plans = _warp_plans(torch.tensor(
+        branched_tree(depth=DETAILED_DEPTH, seg_per_branch=2).parent,
+        dtype=torch.int32, device=dev))
     say("detailed", f"branched_tree(depth={DETAILED_DEPTH}, "
         f"seg_per_branch=2) C={C} N={n} ({n * C} compartments) k_in={K_IN} "
         f"t_end={t_end} ms horizon_impl=fused, regime currents of "
@@ -4052,6 +4116,82 @@ def phase_detailed(dev, smi, t_end=DETAILED_T_END, n=DETAILED_N,
     return out
 
 
+# The phases that check the card against the CPU time nothing, so the
+# script runs them in a second process (``--checks``) beside phases 9-33,
+# after every kernel timing but phase 31's, which waits for that process
+# to end.
+def _check_phases(dev, smi):
+    return (("6 card-vs-cpu", phase_card_vs_cpu, (dev,)),
+            ("7 active-card-vs-cpu", phase_active_card_vs_cpu, (dev,)),
+            ("11 baselines-card-vs-cpu", phase_baselines_card_vs_cpu, (dev,)),
+            ("14 spmd-small", phase_spmd_small, (dev,)),
+            ("20 new-paths-card-vs-cpu", phase_new_paths_card_vs_cpu,
+             (dev, smi)),
+            ("24 robust-card-vs-cpu", phase_robust_card_vs_cpu, (dev, smi)),
+            ("26 families-card-vs-cpu", phase_families_card_vs_cpu, (dev,)))
+
+
+def _timed(walls, label, fn, *a, **kw):
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    walls[label] = time.perf_counter() - t0
+    say("wall", f"phase {label}: {walls[label]:.1f} s")
+    return out
+
+
+def run_checks(out):
+    """The second process: the phases of ``_check_phases`` in turn, their
+    results and walls written to ``out`` as JSON."""
+    dev, smi, walls = torch.device("cuda"), nvidia_smi(), {}
+    res = {label: _timed(walls, label, fn, *a)
+           for label, fn, a in _check_phases(dev, smi)}
+    Path(out).write_text(json.dumps(
+        dict(results=res, walls=walls),
+        default=lambda o: o.item() if hasattr(o, "item") else str(o)))
+    return 0
+
+
+class Checks:
+    """``python3 chip_smoke.py --checks FILE`` started beside the script,
+    in a session of its own (it and the ranks it spawns are stopped
+    together); its output goes to a file and is printed when it ends."""
+
+    def __init__(self, tmp):
+        self.out, self.log = Path(tmp, "checks.json"), Path(tmp, "checks.log")
+        self.proc = self.result = None
+
+    def start(self, dev, smi):
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--checks",
+                 str(self.out)], stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        say("checks", f"phases {[p[0] for p in _check_phases(dev, smi)]} "
+            f"started in a second process")
+
+    def raise_if_failed(self):
+        if self.proc is not None and self.proc.poll() not in (None, 0):
+            self.wait()
+
+    def wait(self):
+        if self.result is None:
+            rc = self.proc.wait()
+            print(self.log.read_text(), end="", flush=True)
+            if rc != 0:
+                raise AssertionError(f"the second process exited with {rc}")
+            self.result = json.loads(self.out.read_text())
+            say("wall", f"second process: "
+                f"{time.perf_counter() - self.t0:.1f} s")
+        return self.result
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+            print(self.log.read_text(), end="", file=sys.stderr, flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--t-end", type=float, default=5.0,
@@ -4060,21 +4200,33 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="also write results as JSON")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS",
                     help="also trace this many full-width rounds")
+    ap.add_argument("--checks", default=None, metavar="FILE",
+                    help="run only the second process's phases (6, 7, 11, "
+                    "14, 20, 24, 26) and write their results to FILE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    dev = torch.device("cuda")
+    if args.checks:
+        return run_checks(args.checks)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    checks = Checks(tmp)
+    try:
+        return _main(args, torch.device("cuda"), checks)
+    finally:
+        checks.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _main(args, dev, checks):
     t_all = time.perf_counter()
     walls = {}
 
     def timed(label, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        walls[label] = time.perf_counter() - t0
-        say("wall", f"phase {label}: {walls[label]:.1f} s")
+        out = _timed(walls, label, fn, *a, **kw)
+        checks.raise_if_failed()
         return out
 
     smi = timed("1 setup", phase_setup)
@@ -4083,53 +4235,38 @@ def main(argv=None):
     act_launches, act = timed("4 active", phase_active, dev, args.t_end,
                               main_stats)
     rows.update(timed("5 sched-kernels", phase_sched_kernels, dev, act))
-    timed("6 card-vs-cpu", phase_card_vs_cpu, dev)
-    timed("7 active-card-vs-cpu", phase_active_card_vs_cpu, dev)
     rows.update(timed("8 fused-solve", phase_fused_solve, dev))
-    base_launches, base = timed("9 baseline", phase_baseline, dev,
-                                args.t_end, main_stats)
-    others = timed("10 other-baselines", phase_other_baselines, dev)
-    timed("11 baselines-card-vs-cpu", phase_baselines_card_vs_cpu, dev)
     spmd, path_mask, launches["compact_rows"], sparse_res = timed(
         "12 spmd", phase_spmd, dev, SPMD_T_END, main_stats)
     rows.update(timed("13 parcel-kernel", phase_parcel_kernel, dev,
                       path_mask))
-    timed("14 spmd-small", phase_spmd_small, dev)
     glob = timed("30 global", phase_global_round, dev, SPMD_T_END, spmd,
                  sparse_res, smi)
     attn_rows = timed("15 attention", phase_attention, dev)
     rows.update(attn_rows)
-    serve_launches, lm_stats = timed("16 serve", phase_serve, dev, smi)
-    launches.update(serve_launches)
     lm_vs_cpu = timed("17 lm-card-vs-cpu", phase_lm_card_vs_cpu, dev)
     f32 = lm_vs_cpu["float32"]
     launches["flash_attention_f32_decode"] = f32["launches"]
     launches["flash_attention_f32_prefill"] = f32["prefill_launches"]
     rows["flash_attention_f32_decode"] = f32.pop("row")
     rows["flash_attention_f32_prefill"] = f32.pop("prefill_row")
+    bwd_rows = timed("27 flash-backward", phase_flash_backward, dev)
+    rows["flash_attention_bwd"] = bwd_rows["smollm-135m training",
+                                           "bfloat16"]
+    checks.start(dev, smi)
+    base_launches, base = timed("9 baseline", phase_baseline, dev,
+                                args.t_end, main_stats)
+    others = timed("10 other-baselines", phase_other_baselines, dev)
+    serve_launches, lm_stats = timed("16 serve", phase_serve, dev, smi)
+    launches.update(serve_launches)
     plastic = timed("18 plastic-schur", phase_plastic_schur, dev, args.t_end,
                     main_stats, smi)
     spec = timed("19 speculative", phase_speculative, dev, SPEC_T_END,
                  main_stats, act["spike_cap"], smi)
-    new_vs_cpu = timed("20 new-paths-card-vs-cpu",
-                       phase_new_paths_card_vs_cpu, dev, smi)
     ckpt = timed("22 checkpoint", phase_checkpoint, dev, args.t_end,
                  main_stats, smi)
     service = timed("23 service", phase_service, dev, main_stats, smi)
-    compact_service, compact_rows, cs_launches = timed(
-        "31 compact-service", phase_compact_service, dev, service,
-        act["spike_cap"], smi)
-    rows.update(compact_rows)
-    launches.update({k: cs_launches[k] for k in ("compact_ids_rows",
-                                                 "compact_gather_rows")})
-    robust_vs_cpu = timed("24 robust-card-vs-cpu", phase_robust_card_vs_cpu,
-                          dev, smi)
     families = timed("25 families", phase_families, dev, smi)
-    families_vs_cpu = timed("26 families-card-vs-cpu",
-                            phase_families_card_vs_cpu, dev)
-    bwd_rows = timed("27 flash-backward", phase_flash_backward, dev)
-    rows["flash_attention_bwd"] = bwd_rows["smollm-135m training",
-                                           "bfloat16"]
     train_launches, train_stats = timed("28 train", phase_train, dev, smi)
     launches.update(train_launches)
     train_vs_cpu = timed("29 train-card-vs-cpu", phase_train_card_vs_cpu,
@@ -4139,6 +4276,13 @@ def main(argv=None):
     launches.update({k: detailed["launches"][k] for k in DETAILED_PATH
                      if k.endswith("_warp")})
     launches["hines_solve_warp"] = detailed["k3_warp_launches"]
+    compact_service, compact_rows, cs_launches = timed(
+        "31 compact-service", phase_compact_service, dev, service,
+        act["spike_cap"], smi, before_rows=checks.wait)
+    rows.update(compact_rows)
+    launches.update({k: cs_launches[k] for k in ("compact_ids_rows",
+                                                 "compact_gather_rows")})
+    checked = checks.wait()
     if args.profile:
         phase_profile(dev, args.profile, args.t_end)
         phase_profile(dev, args.profile, args.t_end, path="active",
@@ -4160,8 +4304,11 @@ def main(argv=None):
     for k in ("mask", "keys"):
         act.pop(k)
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s;"
-        f" walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+        f" walls {json.dumps({k: round(v, 1) for k, v in walls.items()})};"
+        f" second process "
+        f"{json.dumps({k: round(v, 1) for k, v in checked['walls'].items()})}")
     if args.out:
+        res = checked["results"]
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"gpu": smi, "kernels": kernels, "main": main_stats,
@@ -4170,12 +4317,14 @@ def main(argv=None):
              "other_baselines": others, "spmd": spmd,
              "attention": attn_rows, "serve": lm_stats,
              "lm_card_vs_cpu": lm_vs_cpu, "plastic_schur": plastic,
-             "speculative": spec, "new_paths_card_vs_cpu": new_vs_cpu,
+             "speculative": spec,
+             "new_paths_card_vs_cpu": res["20 new-paths-card-vs-cpu"],
              "checkpoint": ckpt, "service": service,
              "global_round": glob, "compact_service": compact_service,
-             "walls": walls,
-             "robust_card_vs_cpu": robust_vs_cpu, "families": families,
-             "families_card_vs_cpu": families_vs_cpu,
+             "walls": walls, "second_process_walls": checked["walls"],
+             "robust_card_vs_cpu": res["24 robust-card-vs-cpu"],
+             "families": families,
+             "families_card_vs_cpu": res["26 families-card-vs-cpu"],
              "flash_backward": {f"{n} {d}": r for (n, d), r in
                                 bwd_rows.items()},
              "train": train_stats,

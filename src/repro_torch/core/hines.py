@@ -126,12 +126,46 @@ class Sweeps(NamedTuple):
     batch after batch adds each parent's children in the order of the
     sequential loop, each from its final row.  ``back``: the substitution,
     depth by depth from 1, (compartments, parents).  ``words``: the
-    schedule as int32 ``[level_ptr | nodes | child_ptr | children]``, what
-    the Hines kernels' warp frame reads."""
+    schedule as the Hines kernels' warp frame reads it (``warp_words``),
+    int32 on the device."""
     schedule: HinesSchedule
     elim: list
     back: list
     words: torch.Tensor
+
+
+def warp_words(s: HinesSchedule) -> list:
+    """The schedule in the form the warp frame of ``csrc/hines.cu`` reads,
+    one shared-memory read per step of a lane, as int32 words:
+
+    - a header ``[F, M, D, n]``: F parents (compartments with children), M
+      words of ``more``, the deepest depth D, and n words in all (a
+      multiple of 4, so the entries stay 16-byte aligned);
+    - F forward entries ``(p, c0, c1, m)``, the parents by depth and index:
+      p's children in descending index are c0, then c1 (-1: none), then,
+      where m >= 0, the ``more[m]`` children ``more[m + 1:...]``;
+    - C back entries ``(i, parent[i])``, the compartments by depth and
+      index (the root's parent is -1);
+    - ``more``; ``fptr`` (D + 1): the parents at depth L are the forward
+      entries ``fptr[L]:fptr[L + 1]``; ``lvl`` (D + 2): depth L's
+      compartments are the back entries ``lvl[L]:lvl[L + 1]``;
+    - zeros up to n, at most 8 C + 4 (a chain's)."""
+    lv, nodes, cptr, kids = s.level_ptr, s.nodes, s.child_ptr, s.children
+    fwd, more, fptr = [], [], [0]
+    for L in range(s.depth):
+        for p in nodes[lv[L]:lv[L + 1]]:
+            ch = list(kids[cptr[p]:cptr[p + 1]])
+            if ch:
+                m = -1 if len(ch) < 3 else len(more)
+                if m >= 0:
+                    more += [len(ch) - 2] + ch[2:]
+                fwd += [p, ch[0], ch[1] if len(ch) > 1 else -1, m]
+        fptr.append(len(fwd) // 4)
+    back = [w for i in nodes for w in (i, s.parent[i])]
+    body = fwd + back + more + fptr + list(lv)
+    n = -(-(4 + len(body)) // 4) * 4
+    return [len(fwd) // 4, len(more), s.depth, n] + body \
+        + [0] * (n - 4 - len(body))
 
 
 @functools.lru_cache(maxsize=64)
@@ -157,7 +191,7 @@ def tree_sweeps(par: tuple, device: str) -> Sweeps:
     back = [(idx(nodes[lv[L]:lv[L + 1]]),
              idx([par[i] for i in nodes[lv[L]:lv[L + 1]]]))
             for L in range(1, s.depth + 1)]
-    words = idx(lv + nodes + cptr + s.children, torch.int32)
+    words = idx(warp_words(s), torch.int32)
     return Sweeps(s, elim, back, words)
 
 

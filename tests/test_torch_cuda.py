@@ -253,28 +253,33 @@ def _random_tree(C, seed):
 
 
 # Trees past the tiles: detailed cells (branched_tree at depths 7-10 and 12,
-# C = 509 ... 16381; K2's rows are walked in device memory at 16381, K1's
-# and K3's too), random trees just past K2's (283) and K1's (786) tiles
-# and at K2's and K3's last staged C (9685), and a 4000-compartment chain
-# (depth C - 1)
+# C = 509 ... 16381; K2's and K3's rows are walked in device memory at
+# 16381), random trees just past K2's (283) and K1's (786) tiles and at
+# 9685, a 4000-compartment chain (depth C - 1), and chains at each
+# kernel's warp-frame limits and one above them (``hines.warp_limits``:
+# K1 3228 and 29056, K2 and K3 2905 and 14528; a chain's tables are at
+# their bound, so the place changes there)
 LARGE_TREES = {
     **{f"branched_{k}": (lambda k=k: morphology.branched_tree(depth=k)
                          .parent) for k in (7, 8, 9, 10, 12)},
     "random_283": lambda: _random_tree(283, 283),
     "random_786": lambda: _random_tree(786, 786),
     "random_9685": lambda: _random_tree(9685, 9685),
-    "chain_4000": lambda: morphology.ball_and_stick(n_dend=4000).parent}
+    "chain_4000": lambda: morphology.ball_and_stick(n_dend=4000).parent,
+    **{f"chain_{C}": (lambda C=C: [-1] + list(range(C - 1)))
+       for C in (2905, 2906, 3228, 3229, 14528, 14529, 29056, 29057)}}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [4096, 1037])
+@pytest.mark.parametrize("N", [4096, 1037, 1])
 @pytest.mark.parametrize("name", list(LARGE_TREES))
 def test_warp_frame_bitwise_on_large_trees(dev, name, N):
     """K1, K2 and K3 on trees whose tiles do not fit, in the main path's
     layouts (d and b as transposed [N, C] rows, d_elim as the factor-row
-    slice) and, at the ragged N, K2 on contiguous [C, N] copies: each
-    bitwise its plain version, K3 also K2(K1), each launch counted under
-    its warp frame where the plan says so."""
+    slice) and, at N 1037 (a multiple of no block's neurons) and 1, K2 on
+    contiguous [C, N] copies: each bitwise its plain version, K3 also
+    K2(K1), each launch counted under its warp frame where the plan says
+    so, at every place the plans take (shared, rows, device)."""
     from repro_torch.kernels.hines import hines as h_cuda
     parent = LARGE_TREES[name]()
     C = len(parent)
@@ -297,14 +302,67 @@ def test_warp_frame_bitwise_on_large_trees(dev, name, N):
     _eq(x3, x)
     _eq(x3, h_ref.hines_solve_ref(pd, gd, dd.T, bd.T))
     n = build.launches()
+    tree = h_cuda.schedule(pd)
+    tables = h_cuda.warp_tables(C, tree.words.numel(), tree.F)
     for k in ("hines_factor", "hines_solve_factored", "hines_solve"):
         assert n[k] == 1
         assert n[f"{k}_warp"] == (h_cuda.plan(C, k).frame == "warp")
+        if name.startswith("chain_") and n[f"{k}_warp"]:
+            c_shared, c_rows = h_cuda.warp_limits(k)
+            assert tables == h_cuda.warp_tables_bound(C)
+            assert h_cuda.plan(C, k, tables).place == (
+                "shared" if C <= c_shared else "rows" if C <= c_rows
+                else "device")
     assert n["hines_solve_factored_warp"] == 1
     if N != 4096:
         cn = h_ops.hines_solve_factored(pd, gd, de.contiguous(),
                                         bd.T.contiguous())
         _eq(cn, x)
+
+
+def _eq_bits(got, want):
+    """The same float64 bits, signed zeros and infinities included, and NaN
+    where NaN (whatever its sign and payload)."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int64),
+                       want[~nan].view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["hines_factor", "hines_solve_factored",
+                                    "hines_solve"])
+def test_warp_frame_divisions_at_the_range_edges(dev, kernel):
+    """The warp frame divides several quotients at once on nvcc's fast
+    path and divides them again where a guard fails: on operands spread
+    over the whole float64 range -- subnormal, huge, zero, infinite, NaN,
+    either sign -- K1, K2 and K3 on the detailed cell give the bits of
+    their plain versions (signed zeros and infinities included, NaN as
+    NaN)."""
+    parent = morphology.branched_tree(depth=8).parent
+    C, N = len(parent), 300
+    rng = np.random.default_rng(30)
+
+    def spread(*shape):
+        x = rng.choice([-1.0, 1.0], shape) * 10.0 ** rng.uniform(
+            -320, 308, shape)
+        special = rng.random(shape)
+        x[special < 0.02] = 0.0
+        x[(special >= 0.02) & (special < 0.03)] = np.inf
+        x[(special >= 0.03) & (special < 0.035)] = np.nan
+        plain = (special >= 0.035) & (special < 0.3)
+        x[plain] = rng.uniform(0.5, 2.0, int(plain.sum()))
+        return torch.from_numpy(x)
+
+    par = torch.as_tensor(parent, dtype=torch.int32, device=dev)
+    gax, d, b = spread(C).to(dev), spread(N, C).to(dev), spread(N, C).to(dev)
+    args = (d.T,) if kernel == "hines_factor" else (d.T, b.T)
+    build.reset_launches()
+    got = getattr(h_ops, kernel)(par, gax, *args)
+    want = getattr(h_ref, f"{kernel}_ref")(par, gax, *args)
+    assert build.launches()[f"{kernel}_warp"] == 1
+    _eq_bits(got, want)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core import morphology
 from repro_torch.core.cell import CellModel
-from repro_torch.core.hines import hines_assemble
+from repro_torch.core.hines import hines_assemble, warp_words
 from repro_torch.kernels import build
 from repro_torch.kernels.event_wheel import event_wheel as ew_cuda
 from repro_torch.kernels.event_wheel import ops as ew_ops
@@ -40,23 +40,26 @@ MORPHS = {"soma": morphology.soma_only,
 @pytest.mark.parametrize("name", list(MORPHS))
 def test_tile_rule_fits_shared_memory_for_every_morphology(name):
     m = MORPHS[name]()
-    frame, staged, smem = h_cuda.plan(m.n_comp)
-    assert (frame, staged, h_cuda.TILE) == ("tile", True, 32)
+    frame, place, neurons, smem = h_cuda.plan(m.n_comp)
+    assert (frame, place, neurons, h_cuda.TILE) == ("tile", "shared", 32, 32)
     assert smem == h_cuda.tile_smem_bytes(32, m.n_comp) <= h_cuda.SMEM_MAX
 
 
 @pytest.mark.parametrize("C", [0, -3, 283, 284, 10_000])
 def test_tile_rule_refuses_what_it_cannot_tile(C):
-    """What K2's tile cannot take, its warp frame takes: staged up to C =
-    9685 (three rows of C float64), walking device memory above.  Only a
-    tree without compartments is refused."""
+    """What K2's tile cannot take, its warp frame takes: in shared memory
+    beside the tree's tables (schedule words and g_axial, at their bound
+    here) up to C = 2905, its rows alone up to 14528 (two rows of C
+    float64 a neuron).  Only a tree without compartments is refused."""
     if C < 1:
         with pytest.raises(ValueError, match="at least one compartment"):
             h_cuda.plan(C)
         return
-    frame, staged, smem = h_cuda.plan(C)
-    assert frame == "warp" and staged == (C <= 9685)
-    assert smem == (24 * C if staged else 0) <= h_cuda.SMEM_MAX
+    frame, place, neurons, smem = h_cuda.plan(C)
+    assert frame == "warp" and place == ("shared" if C <= 2905 else "rows")
+    assert 1 <= neurons <= h_cuda.WARP_MAX
+    assert smem == h_cuda.warp_smem_bytes(C, "hines_solve_factored", place,
+                                          neurons) <= h_cuda.SMEM_MAX
 
 
 def test_tile_bytes_match_the_kernel():
@@ -69,7 +72,8 @@ def test_tile_bytes_match_the_kernel():
             24 * (nb + 1) * C + 8 * C + 4 * (6 * C + 3)
     assert h_cuda.tile_smem_bytes(32, 282) <= h_cuda.SMEM_MAX \
         < h_cuda.tile_smem_bytes(32, 283)
-    assert h_cuda.plan(282) == ("tile", True, h_cuda.tile_smem_bytes(32, 282))
+    assert h_cuda.plan(282) == ("tile", "shared", 32,
+                                h_cuda.tile_smem_bytes(32, 282))
     for make in MORPHS.values():        # the schedule's words fit 4 C + 3
         m = make()
         sch = h_ref.hines_schedule(m.parent)
@@ -106,14 +110,24 @@ def test_each_kernel_tile_bytes_and_limit(kernel):
 @pytest.mark.parametrize("kernel", list(KERNEL_TILES))
 @pytest.mark.parametrize("over", [1, 2, 1000])
 def test_each_kernel_refuses_a_tree_over_its_limit(kernel, over):
-    """A tree whose tile does not fit takes the kernel's warp frame, its
-    rows (g_axial and the operands, K2's multipliers formed where they are
-    added) in shared memory; only an empty tree is refused."""
+    """A tree whose tile does not fit takes the kernel's warp frame: as
+    many neurons a block (up to 16) as fit in shared memory beside the
+    tables (at their bound, 16 C int32: the schedule words and g_axial,
+    packed by entry), each with its rows (K1 d; K2 d_elim and b, its
+    multipliers formed where they are added; K3 d and b); only an empty
+    tree is refused."""
     C = KERNEL_TILES[kernel][1] + over
     rows = h_cuda.WARP_ROWS[kernel]
-    assert rows == {"hines_factor": 2, "hines_solve_factored": 3,
-                    "hines_solve": 3}[kernel]
-    assert h_cuda.plan(C, kernel) == ("warp", True, 8 * rows * C)
+    assert rows == {"hines_factor": 1, "hines_solve_factored": 2,
+                    "hines_solve": 2}[kernel]
+    tables = 4 * 16 * C
+    assert tables == 4 * h_cuda.warp_tables_bound(C)
+    n = min(16, (h_cuda.SMEM_MAX - tables) // (8 * rows * C))
+    assert n == {(1000, "hines_factor"): 8,
+                 (1000, "hines_solve_factored"): 7,
+                 (1000, "hines_solve"): 6}.get((over, kernel), 16)
+    assert h_cuda.plan(C, kernel) == ("warp", "shared", n,
+                                      tables + 8 * rows * C * n)
     with pytest.raises(ValueError, match="at least one compartment"):
         h_cuda.plan(0, kernel)
 
@@ -404,8 +418,8 @@ def test_kernel_schedule_counts_give_the_model_order(name):
     staged parent fill every slot, and give ``ref.hines_schedule``'s
     order: the depths, the compartments by depth, the child ranges and
     each parent's children in descending index.  The words the warp frame
-    is handed (``hines.schedule``) are that order, so both frames walk the
-    tree alike."""
+    is handed (``hines.schedule``) are ``core.hines.warp_words`` of that
+    schedule, so both frames walk the tree alike."""
     parent = TREES[name] if name in TREES else LARGE_TREES[name]()
     D, lvl, nodes, cptr, kids = _schedule_by_counts(parent)
     sched = h_ref.hines_schedule(parent)
@@ -414,26 +428,36 @@ def test_kernel_schedule_counts_give_the_model_order(name):
     assert tuple(nodes) == sched.nodes
     assert tuple(cptr) == sched.child_ptr
     assert tuple(kids) == sched.children
-    words, depth = h_cuda.schedule(torch.tensor(parent, dtype=torch.int32))
-    assert depth == D and words.dtype == torch.int32
-    assert words.tolist() == lvl + nodes + cptr + kids
+    tree = h_cuda.schedule(torch.tensor(parent, dtype=torch.int32))
+    assert tree.D == D and tree.words.dtype == torch.int32
+    assert tree.words.tolist() == warp_words(sched)
+    assert tree.F == sum(1 for p in range(len(parent))
+                         if sched.child_ptr[p + 1] > sched.child_ptr[p])
 
 
 @pytest.mark.parametrize("kernel", list(KERNEL_TILES))
 def test_plan_frames_at_their_limits(kernel):
-    """The tile frame up to the kernel's tile limit; the warp frame staged
-    from there while its rows fit (K1 to C = 14528, K2 and K3 9685:
-    SMEM_MAX over 16, 24 and 24 bytes a compartment); past that the warp
-    frame walks device memory, with no upper limit."""
+    """The tile frame up to the kernel's tile limit; the warp frame from
+    there: "shared" while one neuron's rows fit beside the tables at their
+    bound (K1 to C = 3228, K2 and K3 2905: SMEM_MAX over 72, 80 and 80
+    bytes a compartment), "rows" while one neuron's rows fit (K1 to 29056,
+    K2 and K3 14528: over 8, 16 and 16 bytes), and walking device memory
+    past that, with no upper limit."""
     c_tile = h_cuda.max_compartments(kernel)
-    c_rows = h_cuda.SMEM_MAX // h_cuda.warp_smem_bytes(1, kernel)
-    assert c_rows == {"hines_factor": 14528, "hines_solve_factored": 9685,
-                      "hines_solve": 9685}[kernel]
-    assert h_cuda.warp_smem_bytes(c_rows, kernel) <= h_cuda.SMEM_MAX \
-        < h_cuda.warp_smem_bytes(c_rows + 1, kernel)
+    c_shared, c_rows = h_cuda.warp_limits(kernel)
+    assert (c_shared, c_rows) == {"hines_factor": (3228, 29056),
+                                  "hines_solve_factored": (2905, 14528),
+                                  "hines_solve": (2905, 14528)}[kernel]
+    for C, place in ((c_shared, "shared"), (c_rows, "rows")):
+        assert h_cuda.warp_smem_bytes(C, kernel, place, 1) \
+            <= h_cuda.SMEM_MAX < h_cuda.warp_smem_bytes(C + 1, kernel,
+                                                         place, 1)
     assert [h_cuda.plan(C, kernel)[:2] for C in
-            (1, c_tile, c_tile + 1, c_rows, c_rows + 1, 10 ** 6)] == \
-        [("tile", True)] * 2 + [("warp", True)] * 2 + [("warp", False)] * 2
+            (1, c_tile, c_tile + 1, c_shared, c_shared + 1, c_rows,
+             c_rows + 1, 10 ** 6)] == \
+        [("tile", "shared")] * 2 + [("warp", "shared")] * 2 \
+        + [("warp", "rows")] * 2 + [("warp", "device")] * 2
+    assert h_cuda.plan(10 ** 6, kernel) == ("warp", "device", 8, 0)
 
 
 def test_schedule_is_built_once_per_tree():
@@ -442,12 +466,12 @@ def test_schedule_is_built_once_per_tree():
     refused, and at most ``_TREES_MAX`` addresses are kept."""
     par = torch.tensor(morphology.branched_tree(depth=8).parent,
                        dtype=torch.int32)
-    words, D = h_cuda.schedule(par)
-    assert h_cuda.schedule(par)[0] is words and D == 16
+    tree = h_cuda.schedule(par)
+    assert h_cuda.schedule(par).words is tree.words and tree.D == 16
     star = torch.tensor([-1] + [0] * 1020, dtype=torch.int32)
-    assert h_cuda.schedule(star)[1] == 1
+    assert h_cuda.schedule(star)[1:] == (1, 1, 1019)
     star[5] = 4                                   # edited in place
-    assert h_cuda.schedule(star)[1] == 2
+    assert h_cuda.schedule(star)[1:] == (2, 2, 1018)
     star[5] = 7                                   # parent after child
     with pytest.raises(ValueError, match="Hines order"):
         h_cuda.schedule(star)
@@ -511,3 +535,122 @@ def test_factored_solve_at_factor_rows_plain_vs_jax(name, N):
     np.testing.assert_allclose(x.numpy(), np.asarray(want), rtol=1e-12,
                                atol=1e-14)
 
+
+
+def _children(c0, c1, m, more):
+    """A forward entry's children: c0, then c1 unless -1, then the
+    ``more[m]`` words after ``more[m]`` where m >= 0."""
+    return [c0] + ([c1] if c1 >= 0 else []) \
+        + (more[m + 1:m + 1 + more[m]] if m >= 0 else [])
+
+
+def _walk_words(words, gax, d, b=None, kind="hines_solve"):
+    """The sweeps as the warp frame walks ``core.hines.warp_words``, one
+    compartment at a time: d, b [N, C] -> d_elim (K1) or x (K2 from a
+    factored d, K3 from an assembled one).  The forward entries of each
+    depth, deepest first, each parent adding its children in the entry's
+    order; the back entries of each depth, root first."""
+    F, M, D, n = words[:4]
+    C = d.shape[1]
+    fwd = [words[4 + 4 * k:8 + 4 * k] for k in range(F)]
+    back = [words[4 + 4 * F + 2 * k:6 + 4 * F + 2 * k] for k in range(C)]
+    more = words[4 + 4 * F + 2 * C:4 + 4 * F + 2 * C + M]
+    fptr = words[4 + 4 * F + 2 * C + M:][:D + 1]
+    lvl = words[4 + 4 * F + 2 * C + M + D + 1:][:D + 2]
+    W, X = d.clone(), None if b is None else b.clone()
+    for L in range(D, 0, -1):
+        for p, c0, c1, m in fwd[fptr[L - 1]:fptr[L]]:
+            w, x = W[:, p], None if X is None else X[:, p]
+            for i in _children(c0, c1, m, more):
+                f = gax[i] / W[:, i]
+                if kind != "hines_solve_factored":
+                    w = w + (-f * gax[i])
+                if kind != "hines_factor":
+                    x = x + f * X[:, i]
+            if kind != "hines_solve_factored":
+                W[:, p] = w
+            if kind != "hines_factor":
+                X[:, p] = x
+    if kind == "hines_factor":
+        return W
+    X[:, 0] = X[:, 0] / W[:, 0]
+    for i, p in back[lvl[1]:]:
+        X[:, i] = (X[:, i] + gax[i] * X[:, p]) / W[:, i]
+    return X
+
+
+@pytest.mark.parametrize("name", list(TREES) + list(LARGE_TREES))
+def test_warp_words_decode_to_the_sequential_order(name):
+    """``core.hines.warp_words`` against ``hines_schedule``: the header,
+    each parent with children once, at its depth and in index order, its
+    children in descending index (the first two in its entry, the others
+    counted in ``more``), the back entries the compartments by depth with
+    their parents; and the sweeps walked in the words' order give K1, K2
+    and K3 bit for bit as the sequential loops do."""
+    from repro_torch.core.hines import hines_schedule
+    parent = TREES[name] if name in TREES else LARGE_TREES[name]()
+    sched = hines_schedule(parent)
+    words = warp_words(sched)
+    C = len(parent)
+    F, M, D, n = words[:4]
+    kids = {p: list(sched.children[sched.child_ptr[p]:sched.child_ptr[p + 1]])
+            for p in range(C)}
+    parents = [p for p in sched.nodes if kids[p]]
+    assert (F, M, D, n) == (len(parents), sum(len(k) - 1 for k in
+                                              kids.values() if len(k) > 2),
+                            sched.depth, len(words))
+    assert n % 4 == 0 and n - 4 < 4 * F + 2 * C + M + 2 * D + 7 <= n \
+        <= h_cuda.warp_words_bound(C)
+    fwd = [words[4 + 4 * k:8 + 4 * k] for k in range(F)]
+    more = words[4 + 4 * F + 2 * C:4 + 4 * F + 2 * C + M]
+    fptr = words[4 + 4 * F + 2 * C + M:][:D + 1]
+    assert [e[0] for e in fwd] == parents
+    depth = {i: L for L in range(D + 1)
+             for i in sched.nodes[sched.level_ptr[L]:sched.level_ptr[L + 1]]}
+    for L in range(D):
+        assert all(depth[e[0]] == L for e in fwd[fptr[L]:fptr[L + 1]])
+    for p, c0, c1, m in fwd:
+        assert (c1 >= 0, m >= 0) == (len(kids[p]) > 1, len(kids[p]) > 2)
+        assert _children(c0, c1, m, more) == kids[p] == sorted(kids[p],
+                                                               reverse=True)
+    back = words[4 + 4 * F:4 + 4 * F + 2 * C]
+    assert back == [w for i in sched.nodes for w in (i, parent[i])]
+    assert words[4 + 4 * F + 2 * C + M + D + 1:][:D + 2] \
+        == list(sched.level_ptr)
+    gax, d, b = _tree_case(parent, N=7)
+    d, b = d.T, b.T
+    de = _walk_words(words, gax, d, kind="hines_factor")
+    assert torch.equal(de, _seq_factor(parent, gax, d))
+    assert torch.equal(_walk_words(words, gax, de, b, "hines_solve_factored"),
+                       _seq_solve_factored(parent, gax, de, b))
+    assert torch.equal(_walk_words(words, gax, d, b), _seq_solve(parent, gax,
+                                                                d, b))
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_TILES))
+def test_warp_plan_at_the_detailed_cell(kernel):
+    """The warp frame's plan at the main path's detailed cell (C = 1021,
+    5144 schedule words, 765 parents): the tables once a block -- the
+    words (20,576 bytes), each forward entry's two g_axial (12,240) and
+    g_axial and each back entry's (8,168 each), 49,152 bytes -- then as
+    many neurons as fit, up to 16: K1 16 (one row of 8,168 bytes; 22
+    would fit), K2 and K3 11 (two rows, 228,848 bytes), one block an SM;
+    the tables' bound (16 C int32) leaves K2 and K3 a neuron less."""
+    par = torch.tensor(morphology.branched_tree(depth=8).parent,
+                       dtype=torch.int32)
+    tree = h_cuda.schedule(par)
+    words = tree.words.numel()
+    assert (words, tree.D, tree.F, tree.M) == (5144, 16, 765, 0)
+    tables = h_cuda.warp_tables(1021, words, tree.F)
+    assert 4 * tables == 20576 + 12240 + 2 * 8168 == 49152
+    neurons = {"hines_factor": 16, "hines_solve_factored": 11,
+               "hines_solve": 11}[kernel]
+    row = 8 * h_cuda.WARP_ROWS[kernel] * 1021
+    pl = h_cuda.plan(1021, kernel, tables)
+    assert pl == ("warp", "shared", neurons, 4 * tables + neurons * row)
+    assert pl.smem == (179840 if kernel == "hines_factor" else 228848)
+    assert pl.smem + row > h_cuda.SMEM_MAX or neurons == h_cuda.WARP_MAX
+    assert pl.smem == h_cuda.warp_smem_bytes(1021, kernel, "shared",
+                                             neurons, tables)
+    assert h_cuda.plan(1021, kernel).neurons == neurons - (
+        kernel != "hines_factor")
